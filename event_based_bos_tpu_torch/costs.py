@@ -1,0 +1,137 @@
+"""Functional cost layer.
+
+PyTorch counterpart of the JAX package's ``costs.py``: each cost is a
+function ``cost(arg: dict) -> scalar`` over the reference's argument keys
+(``prediction``, ``measurement``, ``flow``, ``pxy``, ``weights``), and
+:func:`hybrid_cost` returns a closure computing the weighted sum **and**
+the per-term breakdown for the optimizer's history.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Tuple, Union
+
+import torch
+
+from .numerics import abs_
+
+__all__ = ["diff_norm", "flow_norm", "flow_norm_pxy", "image_gradient",
+           "total_variation", "charbonnier", "functions", "hybrid_cost"]
+
+
+def _safe_l2(v: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """L2 norm with a zero subgradient at the origin.
+
+    ``torch.linalg.norm`` back-propagates NaN at an exactly-zero vector,
+    which is the initial state of the translation field; the double
+    ``where`` keeps the gradient there at 0.
+    """
+    sq = torch.sum(v * v, dim=dim)
+    zero = sq == 0
+    safe = torch.where(zero, 1.0, sq)
+    return torch.where(zero, 0.0, torch.sqrt(safe))
+
+
+def diff_norm(arg: dict) -> torch.Tensor:
+    """Induced matrix 1-norm of (prediction − measurement): the largest
+    absolute column sum (sum over axis −2), not the entrywise L1.
+    ``amax`` splits the gradient of tied columns evenly, as JAX's max."""
+    d = abs_(arg["prediction"] - arg["measurement"])
+    return torch.amax(torch.sum(d, dim=-2))
+
+
+def flow_norm(arg: dict) -> torch.Tensor:
+    """Mean L2 magnitude of the flow field, channel axis first."""
+    return torch.mean(_safe_l2(arg["flow"], dim=0))
+
+
+def flow_norm_pxy(arg: dict) -> torch.Tensor:
+    """Mean L2 magnitude of the translation (pxy) field."""
+    return torch.mean(_safe_l2(arg["pxy"], dim=0))
+
+
+def image_gradient(arg: dict) -> torch.Tensor:
+    """Weighted smoothness of the ``[2, H, W]`` flow: central differences
+    along both spatial axes (one-sided at the edges) times the per-pixel
+    weights, mean of the absolute values."""
+    flow = arg["flow"]
+    w = arg.get("weights", None)
+    if w is not None and not torch.is_tensor(w):
+        w = torch.as_tensor(w, dtype=flow.dtype, device=flow.device)
+    if w is not None and w.dim() == 0:
+        w = w.expand(flow.shape[1:])
+    total = 0.0
+    for axis in (1, 2):
+        n = flow.shape[axis]
+        w_axis = axis - 1  # weights are [H, W]
+
+        def wsl(a, b, _wa=w_axis):
+            return 1.0 if w is None else w.narrow(_wa, a, b - a)
+
+        upper = flow.narrow(axis, 2, n - 2)
+        lower = flow.narrow(axis, 0, n - 2)
+        total = total + torch.sum(abs_((upper - lower) * 0.5
+                                       * wsl(1, n - 1)))
+        first = flow.narrow(axis, 1, 1) - flow.narrow(axis, 0, 1)
+        last = flow.narrow(axis, n - 1, 1) - flow.narrow(axis, n - 2, 1)
+        total = total + torch.sum(abs_(first * wsl(0, 1)))
+        total = total + torch.sum(abs_(last * wsl(n - 1, n)))
+    return total / flow.numel()
+
+
+def total_variation(arg: dict) -> torch.Tensor:
+    """Anisotropic TV of the flow (forward differences)."""
+    flow = arg["flow"]
+    dx = abs_(flow[..., 1:, :] - flow[..., :-1, :])
+    dy = abs_(flow[..., :, 1:] - flow[..., :, :-1])
+    return torch.mean(dx) + torch.mean(dy)
+
+
+def charbonnier(arg: dict, alpha: float = 0.45,
+                epsilon: float = 1e-3) -> torch.Tensor:
+    """Robust Charbonnier penalty of (prediction − measurement)."""
+    delta = arg["prediction"] - arg["measurement"]
+    return torch.mean((delta ** 2 + epsilon ** 2) ** alpha)
+
+
+#: Name → function registry (the terms the generative solvers use).
+functions: Dict[str, Callable[[dict], torch.Tensor]] = {
+    "diff_norm": diff_norm,
+    "flow_norm": flow_norm,
+    "flow_norm_pxy": flow_norm_pxy,
+    "image_gradient": image_gradient,
+    "total_variation": total_variation,
+    "charbonnier": charbonnier,
+}
+
+
+def hybrid_cost(cost_with_weight: Dict[str, Union[float, str, tuple]],
+                direction: str = "minimize"
+                ) -> Callable[[dict], Tuple[torch.Tensor,
+                                            Dict[str, torch.Tensor]]]:
+    """Weighted-sum cost combinator returning ``(total, {name: raw})``.
+
+    A weight ``"inv"`` adds the reciprocal of the term; ``("inv", s)`` adds
+    ``1 / (raw · s)``.
+    """
+    if direction not in ("minimize", "maximize", "natural"):
+        raise ValueError("direction should be minimize/maximize/natural, "
+                         f"got {direction}")
+    items = [(name, functions[name], w) for name, w in cost_with_weight.items()]
+    sign = -1.0 if direction == "maximize" else 1.0
+
+    def calculate(arg: dict):
+        total = 0.0
+        terms = {}
+        for name, fn, w in items:
+            raw = fn(arg)
+            terms[name] = raw
+            if w == "inv":
+                total = total + 1.0 / raw
+            elif isinstance(w, tuple) and w[0] == "inv":
+                total = total + 1.0 / (raw * w[1])
+            else:
+                total = total + w * raw
+        return sign * total, terms
+
+    return calculate

@@ -1,0 +1,128 @@
+"""Event → image conversion: Gaussian blur and the bilinear vote.
+
+PyTorch counterpart of the JAX package's ``ops/iwe.py``.  The vote here is
+the plain torch scatter (``index_add``), differentiable with respect to
+the coordinates and weights; the per-frame signed vote of the IWE cache
+runs on the hand-written CUDA kernel of
+:mod:`event_based_bos_tpu_torch.ops.iwe_cuda` instead.
+
+Coordinate convention (reference parity): ``x`` is the row / height
+coordinate, ``y`` is the column / width coordinate.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..types import Events
+
+__all__ = ["gaussian_kernel1d", "gaussian_blur",
+           "bilinear_vote", "create_polarity_iwe"]
+
+_EPS = 1e-6  # floor nudge of the scatter (the reference's torch path)
+
+
+def _radius(sigma: float, ksize: Optional[int]) -> int:
+    """Tap radius: ``round(4σ)`` (cv2 / scipy truncate=4) unless given."""
+    if ksize is None:
+        return max(int(round(4.0 * float(sigma))), 1)
+    return (ksize - 1) // 2
+
+
+def gaussian_kernel1d(sigma: float, ksize: Optional[int] = None,
+                      dtype: torch.dtype = torch.float32,
+                      device=None) -> torch.Tensor:
+    """Normalized 1-D Gaussian taps (radius ``round(4σ)`` by default)."""
+    r = _radius(sigma, ksize)
+    xs = torch.arange(-r, r + 1, dtype=dtype, device=resolve_device(device))
+    k = torch.exp(-(xs ** 2) / (2.0 * float(sigma) ** 2))
+    return k / k.sum()
+
+
+@functools.lru_cache(maxsize=None)
+def _blur_matrix_np(n: int, sigma: float, ksize: Optional[int], mode: str):
+    """Dense ``[n, n]`` 1-D Gaussian blur operator with the border folding
+    baked in (``mode`` is a ``np.pad`` mode)."""
+    r = _radius(sigma, ksize)
+    xs = np.arange(-r, r + 1, dtype=np.float64)
+    k = np.exp(-(xs ** 2) / (2.0 * float(sigma) ** 2))
+    k /= k.sum()
+    eye = np.pad(np.eye(n), ((r, r), (0, 0)), mode=mode)
+    m = np.zeros((n, n))
+    for j, kj in enumerate(k):
+        m += kj * eye[j:j + n, :]
+    return m
+
+
+def gaussian_blur(image: torch.Tensor, sigma: float,
+                  ksize: Optional[int] = None,
+                  mode: str = "symmetric") -> torch.Tensor:
+    """Separable Gaussian blur over the trailing two axes, as two matmuls
+    with border-folded blur operators.
+
+    ``mode`` is a ``np.pad`` mode: ``"symmetric"`` repeats the edge (scipy
+    ``reflect``), ``"reflect"`` is reflect-101 (cv2's default border).
+    """
+    if sigma is None or float(sigma) <= 0:
+        return image
+    mh, mw = (torch.as_tensor(_blur_matrix_np(n, float(sigma), ksize, mode))
+              .to(device=image.device, dtype=image.dtype)
+              for n in image.shape[-2:])
+    return torch.matmul(torch.matmul(mh, image), mw.T)
+
+
+def _corner_data(ev: Events, image_size, padding, weight):
+    """Corner indices/weights of the scatter: floor with an epsilon nudge,
+    4-neighbour indices, per-corner in-bounds masks."""
+    ph, pw = padding
+    h = image_size[0] + 2 * ph
+    w = image_size[1] + 2 * pw
+    fx = torch.floor(ev.x + _EPS)
+    fy = torch.floor(ev.y + _EPS)
+    dx = ev.x - fx
+    dy = ev.y - fy
+    # clamping (after the padding shift) keeps the int cast defined and
+    # leaves every in-bounds corner where it was
+    r0 = (fx + ph).clamp(-2, h).to(torch.int64)
+    c0 = (fy + pw).clamp(-2, w).to(torch.int64)
+    base = torch.where(ev.valid, torch.ones_like(ev.x), 0.0) * weight
+    corners = []
+    for dr, dc, wgt in ((0, 0, (1 - dx) * (1 - dy)),
+                        (1, 0, dx * (1 - dy)),
+                        (0, 1, (1 - dx) * dy),
+                        (1, 1, dx * dy)):
+        r = r0 + dr
+        c = c0 + dc
+        inb = (r >= 0) & (r < h) & (c >= 0) & (c < w)
+        idx = torch.where(inb, r * w + c, 0)
+        corners.append((idx, wgt, inb))
+    return (h, w), base, corners
+
+
+def bilinear_vote(ev: Events, image_size: Tuple[int, int],
+                  weight: Union[float, torch.Tensor] = 1.0,
+                  padding: Tuple[int, int] = (0, 0)) -> torch.Tensor:
+    """Accumulate bilinear votes of events into an ``[H+2ph, W+2pw]`` image.
+
+    ``weight`` is a scalar or a per-event ``[n]`` tensor.  Corners outside
+    the (padded) frame are dropped.
+    """
+    (h, w), base, corners = _corner_data(ev, image_size, padding, weight)
+    flat = torch.zeros((h * w,), dtype=base.dtype, device=base.device)
+    for idx, wgt, inb in corners:
+        flat = flat.index_add(0, idx, torch.where(inb, wgt * base, 0.0))
+    return flat.reshape(h, w)
+
+
+def create_polarity_iwe(ev: Events, image_size: Tuple[int, int],
+                        weight: Union[float, torch.Tensor] = 1.0,
+                        padding: Tuple[int, int] = (0, 0)) -> torch.Tensor:
+    """Stacked (positive, negative) vote images, ``[2, H, W]``."""
+    pos = bilinear_vote(ev.mask_where(ev.p > 0), image_size, weight, padding)
+    neg = bilinear_vote(ev.mask_where(ev.p <= 0), image_size, weight, padding)
+    return torch.stack([pos, neg], dim=0)

@@ -1,0 +1,95 @@
+"""The port stands alone: no JAX, no module of the JAX package, and no
+silent fallback to the CPU.
+
+The port must run on a GPU machine that has no JAX installed, so every
+module of ``event_based_bos_tpu_torch``, ``chip_smoke.py`` and
+``tools/torch_solve_probe.py`` is imported in a subprocess where
+``import jax`` fails.  Entry points called without
+``device=`` must raise here (no GPU) rather than run on the CPU.
+"""
+
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT = REPO / "event_based_bos_tpu_torch"
+
+
+def _port_modules():
+    mods = []
+    for py in sorted(PORT.rglob("*.py")):
+        rel = py.relative_to(REPO).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_port_and_chip_smoke_import_without_jax():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['optax'] = None\n"
+        "sys.modules['event_based_bos_tpu'] = None\n"
+        "import importlib\n"
+        "sys.path.insert(0, 'tools')\n"
+        f"for m in {_port_modules()!r} + ['chip_smoke', 'torch_solve_probe']:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' and sys.modules[m]"
+        " or m.startswith('jax.') or m.startswith('event_based_bos_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_no_port_source_names_the_jax_package():
+    files = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu")) + [
+        REPO / "chip_smoke.py", REPO / "tools" / "torch_solve_probe.py"]
+    offenders = [str(f) for f in files
+                 if "event_based_bos_tpu." in f.read_text()
+                 or "import jax" in f.read_text()]
+    assert not offenders, offenders
+
+
+def test_entry_points_without_device_raise_on_a_cpu_only_machine():
+    torch = pytest.importorskip("torch")
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    from event_based_bos_tpu_torch import events_from_ndarray, resolve_device
+    from event_based_bos_tpu_torch.convert import state_from_numpy
+    from event_based_bos_tpu_torch.solver import (GenerativeSpec,
+                                                  PyramidSpec, estimate_frame)
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        events_from_ndarray(np.zeros((4, 4)))
+    with pytest.raises(RuntimeError):
+        state_from_numpy({"init_params": np.zeros((3, 1, 1))})
+    spec = PyramidSpec(gen=GenerativeSpec(image_size=(16, 16)),
+                       roi=(0, 16, 0, 16), coarsest_patch=8, finest_patch=8,
+                       n_iter=2)
+    with pytest.raises(RuntimeError):
+        estimate_frame(None, np.zeros((16, 16)), np.ones((16, 16)), None,
+                       spec, cache=(np.zeros((16, 16)), None,
+                                    np.ones((16, 16))))
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_chip_smoke_fails_without_a_gpu():
+    torch = pytest.importorskip("torch")
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    out = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

@@ -1,0 +1,124 @@
+#!/usr/bin/env python3
+"""Probe of the PyTorch port's main path on a GPU.
+
+    python3 tools/torch_solve_probe.py [--seeds 8] [--out FILE]
+
+On the ``chip_smoke.py`` workload (720×1280, 2^19 events, 64→8 patches,
+600 iterations), after one warm-up frame:
+
+* EPE against the synthetic ground truth and ms/frame (CUDA events) for
+  ``--seeds`` random initializations (``torch.Generator(...).manual_seed``);
+* one frame under ``torch.profiler``: CUDA kernels launched (per frame and
+  per Adam step), their summed device time, the device's idle share of an
+  unprofiled frame, and the kernels that take the most device time.
+
+Prints one JSON line (also written to ``--out`` when given).  Needs a GPU.
+"""
+
+import argparse
+import json
+import os
+import statistics
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+import chip_smoke as cs  # noqa: E402
+
+
+def main(argv=None):
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seeds", type=int, default=8)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_solve_probe: needs a CUDA device")
+
+    from event_based_bos_tpu_torch import events_from_ndarray
+    from event_based_bos_tpu_torch.solver import GenerativeSpec, PyramidSpec
+    from event_based_bos_tpu_torch.solver.generative import iwe_cache
+    from event_based_bos_tpu_torch.solver.pyramid import (estimate_frame,
+                                                          roi_mask,
+                                                          scale_iterations)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    events, frame, gt_flow = cs.make_workload()
+    gen = GenerativeSpec(image_size=(cs.H, cs.W), iwe_sigma=2.0,
+                         weight_by_inverse_event_hist=True,
+                         optimize_warp=True, poisson_model=True)
+    spec = PyramidSpec(gen=gen, roi=cs.ROI, coarsest_patch=64,
+                       finest_patch=8, n_iter=cs.N_ITER)
+    ev = events_from_ndarray(events, capacity=cs.CAPACITY, device=dev)
+    frame_t = torch.as_tensor(frame, dtype=torch.float32, device=dev)
+    mask = torch.as_tensor(roi_mask(spec), device=dev)
+    steps = sum(scale_iterations(spec))
+
+    def solve(seed):
+        cache = iwe_cache(ev, gen)
+        return estimate_frame(None, frame_t, mask,
+                              torch.Generator(dev).manual_seed(seed), spec,
+                              cache=cache, device=dev)[0]
+
+    solve(0)
+    torch.cuda.synchronize()
+    epe, ms = [], []
+    for seed in range(args.seeds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        flow = solve(seed)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        epe.append(cs.accuracy_epe(flow.cpu().numpy(), gt_flow))
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        solve(0)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    frame_ms = statistics.median(ms)
+    out = {
+        "device": torch.cuda.get_device_name(0),
+        "card": cs.card_line(),
+        "seeds": args.seeds,
+        "epe_px": epe,
+        "epe_median_px": statistics.median(epe),
+        "epe_zero_flow_px": cs.accuracy_epe(np.zeros((2, cs.H, cs.W)),
+                                            gt_flow),
+        "frame_ms": ms,
+        "frame_ms_median": frame_ms,
+        "adam_steps_per_frame": steps,
+        "ms_per_step": frame_ms / steps,
+        "kernels_per_frame": len(kernels),
+        "kernels_per_step": len(kernels) / steps,
+        "device_busy_ms_per_frame": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / frame_ms,
+        "top_kernels": [{"name": name[:90], "count": n, "ms": t}
+                        for name, (n, t) in top],
+    }
+    line = json.dumps(out)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    print(line)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
