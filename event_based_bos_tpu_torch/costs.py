@@ -14,9 +14,12 @@ from typing import Callable, Dict, Tuple, Union
 import torch
 
 from .numerics import abs_
+from .ops.gradients import central_gradient
 
 __all__ = ["diff_norm", "flow_norm", "flow_norm_pxy", "image_gradient",
-           "total_variation", "charbonnier", "functions", "hybrid_cost"]
+           "total_variation", "charbonnier", "image_variance",
+           "gradient_magnitude", "normalized_image_variance", "functions",
+           "hybrid_cost"]
 
 
 def _safe_l2(v: torch.Tensor, dim: int = 0) -> torch.Tensor:
@@ -56,9 +59,11 @@ def image_gradient(arg: dict) -> torch.Tensor:
     weights, mean of the absolute values."""
     flow = arg["flow"]
     w = arg.get("weights", None)
-    if w is not None and not torch.is_tensor(w):
-        w = torch.as_tensor(w, dtype=flow.dtype, device=flow.device)
-    if w is not None and w.dim() == 0:
+    if w is None:
+        w = 1.0
+    elif not torch.is_tensor(w):
+        w = float(w)  # a Python number, not a host→device copy per call
+    elif w.dim() == 0:
         w = w.expand(flow.shape[1:])
     total = 0.0
     for axis in (1, 2):
@@ -66,7 +71,7 @@ def image_gradient(arg: dict) -> torch.Tensor:
         w_axis = axis - 1  # weights are [H, W]
 
         def wsl(a, b, _wa=w_axis):
-            return 1.0 if w is None else w.narrow(_wa, a, b - a)
+            return w if isinstance(w, float) else w.narrow(_wa, a, b - a)
 
         upper = flow.narrow(axis, 2, n - 2)
         lower = flow.narrow(axis, 0, n - 2)
@@ -94,7 +99,28 @@ def charbonnier(arg: dict, alpha: float = 0.45,
     return torch.mean((delta ** 2 + epsilon ** 2) ** alpha)
 
 
-#: Name → function registry (the terms the generative solvers use).
+def image_variance(arg: dict) -> torch.Tensor:
+    """Variance of the IWE (contrast; higher = sharper), ddof 0 as
+    ``jnp.var``."""
+    return torch.var(arg["iwe"], correction=0)
+
+
+def gradient_magnitude(arg: dict) -> torch.Tensor:
+    """Mean squared central-difference gradient magnitude of the IWE (sharp
+    IWEs have strong edges)."""
+    iwe = arg["iwe"]
+    gx = central_gradient(iwe, axis=-2)
+    gy = central_gradient(iwe, axis=-1)
+    return torch.mean(gx ** 2 + gy ** 2)
+
+
+def normalized_image_variance(arg: dict) -> torch.Tensor:
+    """The FWL ratio ``Var(IWE_orig) / Var(IWE)``; < 1 is better."""
+    return (torch.var(arg["orig_iwe"], correction=0)
+            / (torch.var(arg["iwe"], correction=0) + 1e-12))
+
+
+#: Name → function registry (the generative and the contrast terms).
 functions: Dict[str, Callable[[dict], torch.Tensor]] = {
     "diff_norm": diff_norm,
     "flow_norm": flow_norm,
@@ -102,6 +128,9 @@ functions: Dict[str, Callable[[dict], torch.Tensor]] = {
     "image_gradient": image_gradient,
     "total_variation": total_variation,
     "charbonnier": charbonnier,
+    "image_variance": image_variance,
+    "gradient_magnitude": gradient_magnitude,
+    "normalized_image_variance": normalized_image_variance,
 }
 
 

@@ -1,8 +1,11 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-The kernels live in ``csrc/*.cu`` with a plain C interface.  At first use
-each source is compiled by ``nvcc`` for ``sm_90a`` (all sources at once,
-one ``nvcc`` process each), linked into one shared library under the
+The kernels live in ``csrc/*.cu`` with a plain C interface:
+``csrc/hat_vote.cu`` (the bilinear event vote, entry point
+``ebt_hat_vote``) and ``csrc/cmax_stencil.cu`` (the time-binned CMax
+stencil, ``ebt_cmax_stencil_fwd`` and ``ebt_cmax_stencil_bwd``).  At
+first use each source is compiled by ``nvcc`` for ``sm_90a`` (all sources
+at once, one ``nvcc`` process each), linked into one shared library under the
 git-ignored ``build/kernels/`` directory beside the package, and loaded
 with ``ctypes``.  The library name carries a hash of the sources and
 flags, so an edited kernel is rebuilt and an unchanged one is reused.
@@ -32,7 +35,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: kernel name → launches since the last :func:`reset_launches`
-launches: Dict[str, int] = {"hat_vote_image": 0}
+launches: Dict[str, int] = {"hat_vote_image": 0, "cmax_stencil_fwd": 0,
+                            "cmax_stencil_bwd": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -111,5 +115,9 @@ def library() -> ctypes.CDLL:
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.ebt_hat_vote.argtypes = [p, p, p, ll, i, i, p, p]
         lib.ebt_hat_vote.restype = i
+        lib.ebt_cmax_stencil_fwd.argtypes = [p, p, p, i, i, i, i, p, p]
+        lib.ebt_cmax_stencil_fwd.restype = i
+        lib.ebt_cmax_stencil_bwd.argtypes = [p, p, p, p, i, i, i, i, p, p, p]
+        lib.ebt_cmax_stencil_bwd.restype = i
         _lib = lib
     return _lib

@@ -19,7 +19,8 @@ import torch
 
 from ..device import resolve_device
 
-__all__ = ["sobel_kernels", "sobel_xy", "frame_gradients", "poisson_to_flow"]
+__all__ = ["sobel_kernels", "sobel_xy", "frame_gradients", "poisson_to_flow",
+           "central_gradient"]
 
 _SOBEL_X = {
     3: [[-1.0, -2.0, -1.0], [0.0, 0.0, 0.0], [1.0, 2.0, 1.0]],
@@ -95,3 +96,14 @@ def poisson_to_flow(intensity: torch.Tensor, ksize: int = 3) -> torch.Tensor:
     Sobel with the replicate border, divided by 8."""
     dx, dy = sobel_xy(intensity, ksize=ksize, pad_mode="edge")
     return torch.stack([dx, dy], dim=-3) / 8.0
+
+
+def central_gradient(image: torch.Tensor, axis: int) -> torch.Tensor:
+    """Second-order central differences, one-sided at the edges
+    (``torch.gradient`` / ``np.gradient`` with unit spacing)."""
+    n = image.shape[axis]
+    interior = (image.narrow(axis, 2, n - 2)
+                - image.narrow(axis, 0, n - 2)) / 2.0
+    first = image.narrow(axis, 1, 1) - image.narrow(axis, 0, 1)
+    last = image.narrow(axis, n - 1, 1) - image.narrow(axis, n - 2, 1)
+    return torch.cat([first, interior, last], dim=axis)

@@ -6,6 +6,8 @@ PyTorch counterpart of the JAX package's ``ops/image_warp.py``:
     solve loop (sign-select 4-tap form at radius 1, hat sum for R > 1);
   * :func:`sample_bilinear` / :func:`warp_image_forward` — the gather warp
     (``grid_sample`` semantics, zeros outside), the radius-0 path;
+  * :func:`shift_image_matrix` / :func:`warp_image_shift` — a global
+    bilinear shift, as two banded matmuls or as a gather;
   * :func:`resize_bilinear` — half-pixel bilinear resize as two matmuls
     with interpolation matrices built in numpy.
 """
@@ -22,7 +24,8 @@ import torch.nn.functional as F
 from ..numerics import abs_
 
 __all__ = ["sample_bilinear", "warp_image_forward", "warp_image_stencil",
-           "resize_matrix", "resize_bilinear"]
+           "shift_image_matrix", "warp_image_shift", "resize_matrix",
+           "resize_bilinear"]
 
 
 def sample_bilinear(image: torch.Tensor, rows: torch.Tensor,
@@ -114,6 +117,41 @@ def warp_image_stencil(image: torch.Tensor, flow: torch.Tensor,
             wc = torch.maximum(1.0 - abs_(v + ocol), zero)
             out = out + wr * wc * _shift2(image, orow, ocol)
     return out
+
+
+def shift_image_matrix(image: torch.Tensor, shift: torch.Tensor
+                       ) -> torch.Tensor:
+    """Global bilinear shift ``out(x) = image(x − shift)``, zero outside, as
+    two banded matmuls with ``M[i, j] = hat(j − i + shift)`` — exact for a
+    shift of any size and differentiable with respect to it.
+
+    Args:
+        image: ``[..., H, W]``.
+        shift: ``[2]`` (row, col), or ``[..., 2]`` with one shift per
+            leading index of ``image``.
+    """
+    h, w = image.shape[-2:]
+    zero = image.new_zeros(())
+
+    def band(n, s):
+        ii = torch.arange(n, dtype=image.dtype, device=image.device)
+        d = ii[None, :] - ii[:, None] + s[..., None, None]
+        return torch.maximum(1.0 - abs_(d), zero)
+
+    mr = band(h, shift[..., 0])
+    mc = band(w, shift[..., 1])
+    return torch.matmul(torch.matmul(mr, image), mc.transpose(-1, -2))
+
+
+def warp_image_shift(image: torch.Tensor, shift: torch.Tensor
+                     ) -> torch.Tensor:
+    """Warp by a global ``[2]`` translation through the bilinear gather."""
+    h, w = image.shape[-2:]
+    gr, gc = torch.meshgrid(
+        torch.arange(h, dtype=image.dtype, device=image.device),
+        torch.arange(w, dtype=image.dtype, device=image.device),
+        indexing="ij")
+    return sample_bilinear(image, gr - shift[0], gc - shift[1])
 
 
 @functools.lru_cache(maxsize=None)

@@ -21,7 +21,7 @@ import torch
 from ..device import resolve_device
 from ..types import Events
 
-__all__ = ["gaussian_kernel1d", "gaussian_blur",
+__all__ = ["gaussian_kernel1d", "blur_operators", "gaussian_blur",
            "bilinear_vote", "create_polarity_iwe"]
 
 _EPS = 1e-6  # floor nudge of the scatter (the reference's torch path)
@@ -59,20 +59,32 @@ def _blur_matrix_np(n: int, sigma: float, ksize: Optional[int], mode: str):
     return m
 
 
+def blur_operators(shape: Tuple[int, int], sigma: float,
+                   ksize: Optional[int] = None, mode: str = "symmetric",
+                   dtype: torch.dtype = torch.float32, device=None):
+    """The two operators ``(mh, mw)`` of :func:`gaussian_blur` for images
+    of trailing shape ``shape``.  Each build copies from the host: a loop
+    that blurs every step builds them once and passes them on."""
+    return tuple(torch.as_tensor(_blur_matrix_np(n, float(sigma), ksize,
+                                                 mode))
+                 .to(device=device, dtype=dtype) for n in shape)
+
+
 def gaussian_blur(image: torch.Tensor, sigma: float,
                   ksize: Optional[int] = None,
-                  mode: str = "symmetric") -> torch.Tensor:
+                  mode: str = "symmetric", operators=None) -> torch.Tensor:
     """Separable Gaussian blur over the trailing two axes, as two matmuls
     with border-folded blur operators.
 
     ``mode`` is a ``np.pad`` mode: ``"symmetric"`` repeats the edge (scipy
     ``reflect``), ``"reflect"`` is reflect-101 (cv2's default border).
+    ``operators`` is :func:`blur_operators`' result for the same shape,
+    sigma, size and mode.
     """
     if sigma is None or float(sigma) <= 0:
         return image
-    mh, mw = (torch.as_tensor(_blur_matrix_np(n, float(sigma), ksize, mode))
-              .to(device=image.device, dtype=image.dtype)
-              for n in image.shape[-2:])
+    mh, mw = operators or blur_operators(image.shape[-2:], sigma, ksize,
+                                         mode, image.dtype, image.device)
     return torch.matmul(torch.matmul(mh, image), mw.T)
 
 

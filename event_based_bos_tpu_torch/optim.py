@@ -23,12 +23,16 @@ import numpy as np
 import torch
 
 __all__ = ["OptResult", "Adam", "make_optimizer", "run_first_order",
-           "FIRST_ORDER_METHODS"]
+           "FIRST_ORDER_METHODS", "SCIPY_METHODS", "SAMPLER_METHODS"]
 
 #: torch-optimizer names of the reference; only Adam is ported so far
 FIRST_ORDER_METHODS = ("Adam", "AdamW", "Adamax", "NAdam", "RAdam",
                        "Adagrad", "Adadelta", "RMSprop", "SGD", "ASGD",
                        "Rprop")
+#: scipy.optimize and sampler names the reference accepts; not ported yet
+SCIPY_METHODS = ("BFGS", "L-BFGS-B", "LBFGS", "CG", "SLSQP", "Nelder-Mead",
+                 "Powell", "Newton-CG", "TNC", "trust-constr")
+SAMPLER_METHODS = ("random", "grid", "uniform", "TPE")
 
 
 class OptResult(Dict[str, Any]):

@@ -156,7 +156,9 @@ def measured_increment(histogram: torch.Tensor,
 # Parameter field → dense fields
 # ---------------------------------------------------------------------------
 
-def dense_operators(grid: PatchGrid, dtype: torch.dtype, device):
+def dense_operators(grid: PatchGrid, dtype: torch.dtype, device,
+                    out_size: Optional[Tuple[int, int]] = None,
+                    crop: Optional[Tuple[int, int, int, int]] = None):
     """The two interpolation operators ``(mh, mw_t)`` of
     :func:`patch_to_dense` for one grid.  Build them once per scale — each
     build copies from the host.
@@ -165,39 +167,46 @@ def dense_operators(grid: PatchGrid, dtype: torch.dtype, device):
     matrices in float64 (padded rows that repeat an edge row add their
     weights), so the dense field is two matmuls and nothing else.  Unlike a
     gather, whose backward scatters with atomics, the matmuls give the
-    same gradient on every run.
+    same gradient on every run.  ``out_size`` and ``crop`` select the
+    matrices' rows and columns, as in :func:`patch_to_dense`.
     """
     gh, gw = grid.shape
     ph = int(grid.patch_size[0] / 2 // grid.stride[0]) + 1
     pw = int(grid.patch_size[1] / 2 // grid.stride[1]) + 1
-    out_h, out_w = grid.image_size
+    out_h, out_w = out_size or grid.image_size
     up_h = (gh + 2 * ph) * grid.stride[0]
     up_w = (gw + 2 * pw) * grid.stride[1]
     h1 = up_h // 2 - out_h // 2
     w1 = up_w // 2 - out_w // 2
+    x0, x1, y0, y1 = crop if crop is not None else (0, out_h, 0, out_w)
 
-    def folded(n, pad, up, first, size):
+    def folded(n, pad, up, first, last):
         src = np.clip(np.arange(-pad, n + pad), 0, n - 1)
         edge = np.zeros((n + 2 * pad, n))
         edge[np.arange(n + 2 * pad), src] = 1.0
-        return _resize_matrix_np(n + 2 * pad, up)[first:first + size] @ edge
+        return _resize_matrix_np(n + 2 * pad, up)[first:last] @ edge
 
-    mh = folded(gh, ph, up_h, h1, out_h)
-    mw = folded(gw, pw, up_w, w1, out_w)
+    mh = folded(gh, ph, up_h, h1 + x0, h1 + x1)
+    mw = folded(gw, pw, up_w, w1 + y0, w1 + y1)
     return tuple(torch.as_tensor(m).to(device=device, dtype=dtype)
                  for m in (mh, np.ascontiguousarray(mw.T)))
 
 
 def patch_to_dense(field: torch.Tensor, grid: PatchGrid,
+                   out_size: Optional[Tuple[int, int]] = None,
+                   crop: Optional[Tuple[int, int, int, int]] = None,
                    operators=None) -> torch.Tensor:
     """Interpolate a per-patch field ``[..., gh, gw]`` to dense ``[..., H, W]``.
 
     Replicate-pad the patch grid by ``patch/2 // stride + 1``, bilinear
-    resize by the stride factor (half-pixel sampling), center-crop to the
-    image — with the resize matrices sliced to the output rows/cols.
-    ``operators`` is :func:`dense_operators`' result for this grid.
+    resize by the stride factor (half-pixel sampling), center-crop to
+    ``out_size`` (the image by default) — with the resize matrices sliced
+    to the output rows/cols.  ``crop = (x0, x1, y0, y1)``, in output
+    coordinates, restricts the result to that box.  ``operators`` is
+    :func:`dense_operators`' result for the same grid, size and crop.
     """
-    mh, mw_t = operators or dense_operators(grid, field.dtype, field.device)
+    mh, mw_t = operators or dense_operators(grid, field.dtype, field.device,
+                                            out_size, crop)
     return torch.matmul(torch.matmul(mh, field), mw_t)
 
 

@@ -1,4 +1,5 @@
-"""Parity of the port's cost terms, values and gradients, with JAX.
+"""Parity of the port's cost terms, values and gradients, with JAX
+(the generative terms and the CMax contrast terms).
 
 Gradients are compared with ``jax.grad``.  Float64 inputs (the conftest
 enables x64) so the comparison is of the formulas: ≤ 1e-10 relative.  The
@@ -118,3 +119,24 @@ def test_hybrid_cost(weights, direction):
 def test_hybrid_cost_rejects_unknown_direction():
     with pytest.raises(ValueError):
         tcosts.hybrid_cost({"diff_norm": 1.0}, "sideways")
+
+
+@pytest.mark.parametrize("name", ["image_variance", "gradient_magnitude",
+                                  "normalized_image_variance"])
+def test_contrast_cost_value_and_gradient(name):
+    """The IWE contrasts of the CMax solver; the variance is ddof 0 as
+    ``jnp.var``."""
+    rng = np.random.default_rng(4)
+    iwe = rng.gamma(2.0, 1.0, (H, W))
+    orig = rng.gamma(2.0, 1.0, (H, W))
+    jv, jg = jax.value_and_grad(
+        lambda a, b: jcosts.functions[name]({"iwe": a, "orig_iwe": b}),
+        argnums=(0, 1))(jnp.asarray(iwe), jnp.asarray(orig))
+    ti = torch.as_tensor(iwe).requires_grad_(True)
+    to = torch.as_tensor(orig).requires_grad_(True)
+    tv = tcosts.functions[name]({"iwe": ti, "orig_iwe": to})
+    tg = torch.autograd.grad(tv, (ti, to), allow_unused=True)
+    assert rel_err(tv, jv) <= 1e-12
+    for a, b in zip(tg, jg):
+        a = np.zeros(b.shape) if a is None else np_of(a)
+        np.testing.assert_allclose(a, np_of(b), rtol=1e-9, atol=1e-15)

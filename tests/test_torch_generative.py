@@ -99,6 +99,25 @@ def test_patch_to_dense(patch):
                                            operators=ops), got)
 
 
+@pytest.mark.parametrize("out_size,crop", [
+    (None, (3, 29, 5, 41)), (None, (0, H, 0, W)), ((24, 40), None),
+    ((24, 40), (2, 20, 0, 17)),
+])
+def test_patch_to_dense_crop_and_out_size(out_size, crop):
+    """The cropped field (the CMax objective's ROI box) is the same two
+    matmuls with the operators' rows and columns sliced."""
+    grid_j = jtypes.PatchGrid((H, W), (8, 8), (8, 8))
+    grid_t = ttypes.PatchGrid((H, W), (8, 8), (8, 8))
+    field = np.random.default_rng(2).normal(size=(2,) + grid_t.shape)
+    want = jgen.patch_to_dense(jnp.asarray(field), grid_j, out_size, crop)
+    got = tgen.patch_to_dense(torch.as_tensor(field), grid_t, out_size, crop)
+    assert got.shape == want.shape
+    assert rel_err(got, want) <= 1e-12
+    ops = tgen.dense_operators(grid_t, torch.float64, CPU, out_size, crop)
+    assert torch.equal(tgen.patch_to_dense(torch.as_tensor(field), grid_t,
+                                           operators=ops), got)
+
+
 @pytest.mark.parametrize("kw", [{}, {"no_polarity": True},
                                 {"warp_stencil_radius": 0}])
 def test_predict_increment(kw):

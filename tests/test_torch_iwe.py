@@ -44,6 +44,10 @@ def test_gaussian_blur(sigma, mode, dtype):
     got = tiwe.gaussian_blur(torch.as_tensor(img), sigma, mode=mode)
     assert got.dtype == getattr(torch, dtype)
     assert rel_err(got, want) <= 1e-6
+    ops = tiwe.blur_operators((48, 64), sigma, mode=mode,
+                              dtype=getattr(torch, dtype), device=CPU)
+    assert torch.equal(tiwe.gaussian_blur(torch.as_tensor(img), sigma,
+                                          mode=mode, operators=ops), got)
 
 
 def test_gaussian_kernel1d():

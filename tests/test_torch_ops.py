@@ -1,8 +1,10 @@
-"""Parity of the port's Sobel, resize and pattern-shift warp with JAX.
+"""Parity of the port's Sobel, central differences, resize, pattern-shift
+warp and global shifts with JAX.
 
 Tolerances: float32 inputs, ≤ 1e-6 relative to the output's scale for
 the Sobel and resize (same taps and operators, different summation
-order), ≤ 1e-5 abs for the warps and their flow gradients.
+order), ≤ 1e-5 abs for the warps and their flow gradients; float64 for
+the central differences and the global shifts (≤ 1e-12).
 """
 
 import jax
@@ -121,3 +123,52 @@ def test_warp_image_forward_radius0_path():
     got = twarp.sample_bilinear(torch.as_tensor(img), torch.as_tensor(rows),
                                 torch.as_tensor(cols))
     np.testing.assert_allclose(np_of(got), np_of(want), atol=1e-6)
+
+
+@pytest.mark.parametrize("axis", [0, 1, -1, -2])
+def test_central_gradient(axis):
+    img = np.random.default_rng(10).normal(size=(5, 7, 9))
+    want = jgrad.central_gradient(jnp.asarray(img), axis)
+    got = tgrad.central_gradient(torch.as_tensor(img), axis)
+    assert got.shape == img.shape
+    np.testing.assert_allclose(np_of(got), np_of(want), atol=1e-12)
+    np.testing.assert_allclose(np_of(got), np.gradient(img, axis=axis),
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("shift", [[1.3, -2.7], [0.0, 0.0], [-7.5, 11.2],
+                                   [2.0, -1.0]])
+def test_shift_image_matrix_and_warp_image_shift(shift):
+    """Values and the shift's gradient, including integer shifts (hat
+    kinks) and shifts beyond one pixel."""
+    rng = np.random.default_rng(11)
+    img = rng.uniform(0, 1, (20, 26))
+    g = rng.uniform(-1, 1, (20, 26))
+    for jfn, tfn in ((jwarp.shift_image_matrix, twarp.shift_image_matrix),
+                     (jwarp.warp_image_shift, twarp.warp_image_shift)):
+        jv, jg = jax.value_and_grad(
+            lambda s: jnp.sum(jfn(jnp.asarray(img), s) * g))(
+            jnp.asarray(shift))
+        ts = torch.as_tensor(shift, dtype=torch.float64).requires_grad_(True)
+        tv = (tfn(torch.as_tensor(img), ts) * torch.as_tensor(g)).sum()
+        tv.backward()
+        assert abs(float(tv.detach()) - float(jv)) <= 1e-12 * max(
+            1.0, abs(float(jv)))
+        np.testing.assert_allclose(np_of(ts.grad), np_of(jg), atol=1e-12)
+    a = twarp.shift_image_matrix(torch.as_tensor(img), torch.as_tensor(shift))
+    b = twarp.warp_image_shift(torch.as_tensor(img), torch.as_tensor(shift))
+    np.testing.assert_allclose(np_of(a), np_of(b), atol=1e-12)
+
+
+def test_shift_image_matrix_one_shift_per_image():
+    """A ``[B, 2]`` shift moves each of ``B`` images by its own shift, as
+    the binned translation objective uses it."""
+    rng = np.random.default_rng(12)
+    imgs = rng.uniform(0, 1, (3, 10, 14))
+    shifts = rng.uniform(-3, 3, (3, 2))
+    got = twarp.shift_image_matrix(torch.as_tensor(imgs),
+                                   torch.as_tensor(shifts))
+    for i in range(3):
+        want = jwarp.shift_image_matrix(jnp.asarray(imgs[i]),
+                                        jnp.asarray(shifts[i]))
+        np.testing.assert_allclose(np_of(got[i]), np_of(want), atol=1e-12)

@@ -1,13 +1,18 @@
 #!/usr/bin/env python3
-"""Probe of the PyTorch port's main path on a GPU.
+"""Probe of the PyTorch port's solve paths on a GPU.
 
-    python3 tools/torch_solve_probe.py [--seeds 8] [--out FILE]
+    python3 tools/torch_solve_probe.py [--path pyramid|cmax] [--seeds 8]
+                                       [--out FILE]
 
-On the ``chip_smoke.py`` workload (720×1280, 2^19 events, 64→8 patches,
-600 iterations), after one warm-up frame:
+On the ``chip_smoke.py`` workload (720×1280, 2^19 events), after one
+warm-up frame, for ``--path pyramid`` (the main path: 64→8 patches, 600
+iterations) or ``--path cmax`` (the CMax cell: ``CmaxSpec``'s defaults with
+the bench ROI, 260 Adam steps):
 
-* EPE against the synthetic ground truth and ms/frame (CUDA events) for
-  ``--seeds`` random initializations (``torch.Generator(...).manual_seed``);
+* EPE against the synthetic ground truth and ms/frame (CUDA events) over
+  ``--seeds`` frames — random initializations
+  (``torch.Generator(...).manual_seed``) for the pyramid; the CMax solve
+  starts from flow 0, so its frames repeat;
 * one frame under ``torch.profiler``: CUDA kernels launched (per frame and
   per Adam step), their summed device time, the device's idle share of an
   unprofiled frame, and the kernels that take the most device time.
@@ -34,6 +39,8 @@ def main(argv=None):
     from torch.profiler import ProfilerActivity, profile
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", choices=("pyramid", "cmax"),
+                    default="pyramid")
     ap.add_argument("--seeds", type=int, default=8)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -41,7 +48,8 @@ def main(argv=None):
         raise SystemExit("torch_solve_probe: needs a CUDA device")
 
     from event_based_bos_tpu_torch import events_from_ndarray
-    from event_based_bos_tpu_torch.solver import GenerativeSpec, PyramidSpec
+    from event_based_bos_tpu_torch.solver import (GenerativeSpec, PyramidSpec,
+                                                  cmax, estimate_frame_cmax)
     from event_based_bos_tpu_torch.solver.generative import iwe_cache
     from event_based_bos_tpu_torch.solver.pyramid import (estimate_frame,
                                                           roi_mask,
@@ -59,13 +67,22 @@ def main(argv=None):
     ev = events_from_ndarray(events, capacity=cs.CAPACITY, device=dev)
     frame_t = torch.as_tensor(frame, dtype=torch.float32, device=dev)
     mask = torch.as_tensor(roi_mask(spec), device=dev)
-    steps = sum(scale_iterations(spec))
+    if args.path == "cmax":
+        cspec = cs.cmax_cell_spec()
+        steps = sum(cmax.scale_iterations(cspec))
+        epe_of = cs.cmax_epe
 
-    def solve(seed):
-        cache = iwe_cache(ev, gen)
-        return estimate_frame(None, frame_t, mask,
-                              torch.Generator(dev).manual_seed(seed), spec,
-                              cache=cache, device=dev)[0]
+        def solve(_seed):
+            return estimate_frame_cmax(ev, None, None, cspec, device=dev)[0]
+    else:
+        steps = sum(scale_iterations(spec))
+        epe_of = cs.accuracy_epe
+
+        def solve(seed):
+            cache = iwe_cache(ev, gen)
+            return estimate_frame(None, frame_t, mask,
+                                  torch.Generator(dev).manual_seed(seed),
+                                  spec, cache=cache, device=dev)[0]
 
     solve(0)
     torch.cuda.synchronize()
@@ -78,7 +95,7 @@ def main(argv=None):
         end.record()
         end.synchronize()
         ms.append(start.elapsed_time(end))
-        epe.append(cs.accuracy_epe(flow.cpu().numpy(), gt_flow))
+        epe.append(epe_of(flow.cpu().numpy(), gt_flow))
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -95,11 +112,11 @@ def main(argv=None):
     out = {
         "device": torch.cuda.get_device_name(0),
         "card": cs.card_line(),
+        "path": args.path,
         "seeds": args.seeds,
         "epe_px": epe,
         "epe_median_px": statistics.median(epe),
-        "epe_zero_flow_px": cs.accuracy_epe(np.zeros((2, cs.H, cs.W)),
-                                            gt_flow),
+        "epe_zero_flow_px": epe_of(np.zeros((2, cs.H, cs.W)), gt_flow),
         "frame_ms": ms,
         "frame_ms_median": frame_ms,
         "adam_steps_per_frame": steps,
