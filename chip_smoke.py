@@ -20,7 +20,8 @@ failure:
    workload's histograms over the 720×644 ROI box, R = 2) for a N(0, 0.8)
    flow, flow 0 (where both VJPs are exactly 0) and an integer flow, and
    at 19×37 for R = 1, 3, 4: relative error < 1e-5; kernel and plain times
-   against the bound;
+   against the bound (the bytes, or the operations of the taps these
+   inputs need, whichever is larger);
 4. the main path at full width — the ``bench.py`` workload and spec: the
    IWE cache on the card, then ``estimate_frame`` (64→8 patches, 600
    iterations) — one warm-up frame, three timed frames and one frame that
@@ -33,11 +34,12 @@ failure:
    16 bins, R = 2): ``estimate_frame_cmax``, one warm-up frame and three
    timed frames; the flow must be finite, the same bit for bit in the
    three timed frames, launched through both stencil kernels exactly 260
-   times a frame, and must not lower the IWE variance; EPE against the
-   ground truth is recorded, with no limit.  Then the same spec on a
-   full-width translating dot pattern (motion inside R = 2's envelope):
-   the IWE variance must grow and the flow's medians come within 0.5 px
-   of the motion;
+   times a frame, must not lower the IWE variance, and the loss must move
+   at every scale; EPE against the ground truth is recorded, with no
+   limit.  Then the same spec, driven the same way, on a full-width
+   translating dot pattern on integer sensor coordinates (motion inside
+   R = 2's envelope): besides the same checks, the IWE variance must grow
+   and the flow's medians come within 0.5 px of the motion;
 5. a small float64 scene solved on the card and on the CPU, which must
    agree to 1e-6;
 5b. a small float32 CMax scene (a translating dot pattern) solved through
@@ -263,18 +265,34 @@ def iwe_variances(ev, flow, spec):
                                               flow_box))
 
 
-def cmax_bound(n_bins, h, w, radius, backward):
-    """Least time (ms) of the stencil on an H100 SXM and what bounds it:
-    HBM bytes with each input read once and each output written once, and
-    f32 operations of the kernel's formula (``csrc/cmax_stencil.cu``)."""
-    k = 2 * radius + 1
+def cmax_bound(hists, flow, dts, radius, backward):
+    """Least time (ms) of the stencil on an H100 SXM for these inputs, and
+    what bounds it: HBM bytes with each input read once and each output
+    written once, against the f32 operations these inputs need.
+
+    hat(a + o) and dhat(a + o) are nonzero only where |a + o| < 1, so a
+    pixel and bin need n_u·n_v taps (n ≤ 2 offsets per axis; 1 on an
+    integer shift), not all (2R+1)².  Per pixel and bin the forward needs
+    2 + 4(n_u + n_v) + 3·n_u·n_v operations (the two shifts; add, abs, sub,
+    max per hat weight; a weight product and an FMA, counted as two, per
+    tap) and the backward 2 + 7(n_u + n_v) + 9·n_u·n_v (dhat adds a
+    compare, a sign and a select per offset; a tap is g·h, then four
+    operations each for du and dv)."""
+    import torch
+
+    b, h, w = hists.shape
     px = h * w
+    shifts = -dts[:, None, None, None] * flow[None]            # [B, 2, h, w]
+    n = sum((shifts + o).abs() < 1
+            for o in range(-radius, radius + 1)).to(torch.int64)
+    n_axes = int(n.sum())
+    n_taps = int((n[:, 0] * n[:, 1]).sum())
     if backward:
-        ops = (2 + 14 * k + 9 * k * k) * n_bins * px
-        nbytes = 4 * (n_bins * px + 2 * px + px + n_bins + 2 * px)
+        ops = 2 * b * px + 7 * n_axes + 9 * n_taps
+        nbytes = 4 * (b * px + 2 * px + px + b + 2 * px)
     else:
-        ops = (2 + 8 * k + 3 * k * k) * n_bins * px
-        nbytes = 4 * (n_bins * px + 2 * px + n_bins + px)
+        ops = 2 * b * px + 4 * n_axes + 3 * n_taps
+        nbytes = 4 * (b * px + 2 * px + b + px)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / F32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
@@ -368,7 +386,8 @@ def check_cmax_kernels(events, device):
     for name, line, backward, kernel, plain in timed:
         kernel_ms = cuda_ms(kernel, flush=flush)
         plain_ms = cuda_ms(plain, flush=flush)
-        bound_ms, bound_by, nbytes, ops = cmax_bound(b, h, w, r, backward)
+        bound_ms, bound_by, nbytes, ops = cmax_bound(hists, fl, dts, r,
+                                                     backward)
         print(f"{name} times (median of 20, L2 flushed): kernel "
               f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{bound_ms * 1e3:.2f} us ({nbytes} B, {ops} f32 ops, "
@@ -477,8 +496,14 @@ def cmax_epe(flow, gt_flow):
     return accuracy_epe(-np.asarray(flow), gt_flow)
 
 
-def run_cmax_path(events, gt_flow, device):
-    """Phase 4b: the full-width CMax solve (``estimate_frame_cmax``)."""
+def drive_cmax(scene, events, gt_flow, device):
+    """The full-width CMax solve (``estimate_frame_cmax``) under the cell's
+    spec: one warm-up frame and three timed frames, with the launch counts
+    set to 0 just before and read just after.  Checks that the flow is
+    finite, that each stencil kernel ran once per Adam step and that the
+    three timed flows are the same bit for bit; returns the launches, the
+    flow, the IWE variance at flow 0 and at the solution, and the loss
+    history of each scale."""
     import numpy as np
     import torch
 
@@ -530,7 +555,7 @@ def run_cmax_path(events, gt_flow, device):
     hist = [h.cpu().numpy() for h in aux["loss_history"]]
     ms = statistics.median(frame_ms)
     bx0, bx1, by0, by1 = _roi_box(spec)
-    print(f"cmax path: box {bx1 - bx0}x{by1 - by0}, "
+    print(f"cmax path, {scene}: box {bx1 - bx0}x{by1 - by0}, "
           f"{hists.shape[0]} bins, R={spec.warp_radius}, {steps} Adam "
           f"steps; per-frame {ms:.1f} ms (frames "
           f"{', '.join(f'{t:.1f}' for t in frame_ms)}; warm-up "
@@ -540,53 +565,50 @@ def run_cmax_path(events, gt_flow, device):
           f"{float(np.abs(flow_np).max()):.4g} px; IWE variance at flow 0 "
           f"{var0:.6g}, at the solution {var1:.6g}; timed frames "
           f"bit-identical {repeatable}; peak memory {peak_gib:.2f} GiB")
-    print("cmax loss per scale (first, best, best step of "
+    print(f"cmax loss per scale, {scene} (first, best, best step of "
           + ", ".join(str(len(h)) for h in hist) + "): "
           + "; ".join(f"{h[0]:.6g}, {h.min():.6g}, {int(h.argmin())}"
                       for h in hist))
     assert flow_np.shape == (2, H, W) and np.isfinite(flow_np).all()
     for k, n in per_frame.items():
         assert n == steps, f"{k}: {n} launches a frame, expected {steps}"
-    assert repeatable, "the same frame gave different CMax flows"
+    assert repeatable, f"the same frame gave different CMax flows ({scene})"
+    return launches, flow_np, var0, var1, hist
+
+
+def run_cmax_path(events, gt_flow, device):
+    """Phase 4b, the cell: the bench scene.  No step of its solve beats the
+    contrast at flow 0, so the best iterate is the start; the variance must
+    not fall, and the loss must have moved at every scale (the iterates
+    left flow 0)."""
+    launches, _flow, var0, var1, hist = drive_cmax("bench scene", events,
+                                                   gt_flow, device)
     # the start is the best iterate when no step beats the loss at flow 0
     assert var1 >= var0, f"the solve lowered the IWE variance {var0} -> {var1}"
+    assert all((h != h[0]).any() for h in hist), "an iterate never moved"
     return launches
 
 
 def check_cmax_sharpens(device):
     """Phase 4b, second scene: the cell's spec at full width on a
-    translating dot pattern (523,264 events, motion inside R = 2's
-    envelope), where the contrast has a maximum away from flow 0.  The
-    IWE variance must grow and the flow must find the motion."""
+    translating dot pattern (523,264 events on integer sensor coordinates,
+    as a camera gives them, so that the histograms and the solve repeat bit
+    for bit; motion inside R = 2's envelope), where the contrast has a
+    maximum away from flow 0.  Driven like the cell; the IWE variance must
+    grow and the flow must find the motion, which needs the backward
+    kernel's gradient."""
     import numpy as np
-    import torch
 
-    from event_based_bos_tpu_torch import events_from_ndarray
-    from event_based_bos_tpu_torch.solver.cmax import estimate_frame_cmax
-
-    dev = torch.device(device)
-    spec = cmax_cell_spec()
     vx, vy = DOT_MOTION
     evn = moving_dot_events(H, W, vx, vy, CAPACITY - 1024, seed=1)
-    ev = events_from_ndarray(evn, capacity=CAPACITY, device=dev)
-    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    s.record()
-    flow, _ = estimate_frame_cmax(ev, None, None, spec, device=dev)
-    e.record()
-    e.synchronize()
-    var0, var1 = iwe_variances(ev, flow, spec)
-    flow_np = flow.cpu().numpy()
+    evn[:, :2] = np.round(evn[:, :2])
     gt = np.broadcast_to(np.array([vx, vy])[:, None, None], (2, H, W))
+    _launches, flow_np, var0, var1, _hist = drive_cmax(
+        f"translating dots ({vx:g}, {vy:g}) px/window", evn, gt, device)
     f = flow_np[:, ROI[0]:ROI[1], ROI[2]:ROI[3]]
     med = [float(np.median(f[i])) for i in (0, 1)]
-    epe = cmax_epe(flow_np, gt)
-    zero_epe = cmax_epe(np.zeros_like(flow_np), gt)
-    print(f"cmax path, translating dots ({vx:g}, {vy:g}) px/window: "
-          f"{s.elapsed_time(e):.1f} ms (first frame of this scene), flow "
-          f"medians {med[0]:.3f}, {med[1]:.3f}, EPE {epe:.4f} px "
-          f"(zero-flow {zero_epe:.4f} px), IWE variance at flow 0 "
-          f"{var0:.6g}, at the solution {var1:.6g}")
-    assert np.isfinite(f).all()
+    print(f"cmax translating dots: flow medians {med[0]:.3f}, {med[1]:.3f} "
+          f"(motion {vx:g}, {vy:g}; limit 0.5 px)")
     assert var1 > var0, f"the IWE variance did not grow: {var0} -> {var1}"
     assert abs(med[0] - vx) < 0.5 and abs(med[1] - vy) < 0.5, med
 

@@ -32,22 +32,27 @@
 // result repeats bit for bit.  No shared memory is used yet.
 //
 // What bounds it on an H100 (convention: HBM bytes with each input read
-// once and each output written once, L2 flushed before the call; f32
-// operations of the formula, an FMA counted as two, against 67 TFLOP/s).
-// K = 2R + 1 taps per axis; per pixel and bin the forward does
-// 2 + 8K + 3K^2 operations (u and v; add, abs, sub, max per hat; two
-// multiplies and an add per tap) and the backward 2 + 14K + 9K^2 (dhat adds
-// a compare, a sign and a select per offset; a tap is g*h, then four
-// operations each for du and dv).  At the CMax cell's box, B = 16 and
-// 720 x 644 = 463,680 px, R = 2:
-//   forward:  (B+3)*4*463,680 = 35.2 MB, 10.5 us at 3.35 TB/s;
-//             117 ops * 16 * 463,680 = 0.87 GFLOP, 13.0 us: bound by
-//             operations.
+// once and each output written once, L2 flushed before the call, at
+// 3.35 TB/s; against the f32 operations the function needs, an FMA counted
+// as two, at 67 TFLOP/s).  hat(a + o) and dhat(a + o) are nonzero only
+// where |a + o| < 1, so a pixel and bin need at most 2 x 2 of the
+// (2R+1)^2 taps (1 x 1 on an integer shift).  With n_u, n_v <= 2 such
+// offsets per axis, the forward needs 2 + 4(n_u + n_v) + 3 n_u n_v
+// operations per pixel and bin (the two shifts; add, abs, sub, max per hat
+// weight; a weight product and an FMA per tap) and the backward
+// 2 + 7(n_u + n_v) + 9 n_u n_v (dhat adds a compare, a sign and a select
+// per offset; a tap is g*h, then four operations each for du and dv).  At
+// the CMax cell's box, B = 16 and 720 x 644 = 463,680 px, R = 2, and a
+// flow whose shifts are not integers (n_u = n_v = 2):
+//   forward:  (B+3)*4*463,680 = 35.2 MB, 10.5 us;
+//             30 ops * 16 * 463,680 = 0.22 GFLOP, 3.3 us: bound by bytes.
 //   backward: (B+5)*4*463,680 = 38.9 MB, 11.6 us;
-//             297 ops * 16 * 463,680 = 2.20 GFLOP, 32.9 us: bound by
-//             operations.
-// The 29.7 MB of histograms fit the 50 MB L2, so within the Adam loop the
-// forward and backward of one step mostly find them there.
+//             66 ops * 16 * 463,680 = 0.49 GFLOP, 7.3 us: bound by bytes.
+// This kernel evaluates all (2R+1)^2 taps (117 and 297 operations per
+// pixel and bin at R = 2), most of them zero; that is work above the
+// bound, not part of it.  The 29.7 MB of histograms fit the 50 MB L2, so
+// within the Adam loop the forward and backward of one step mostly find
+// them there.
 
 #include <cuda_runtime.h>
 #include <math.h>

@@ -257,3 +257,34 @@ def test_estimate_frame_cmax_translation_model():
     with pytest.raises(KeyError):
         tcmax.estimate_frame_cmax(tev, None, None, tcmax.CmaxSpec(
             image_size=(H, W), motion_model="affine"), device=CPU)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_bench_like_scene_returns_the_start(use_kernel):
+    """A reduced copy of the bench scene (its generator at 90×160 with
+    8,000 events, the plume speed scaled with the height) under the CMax
+    cell's spec (``CmaxSpec``'s defaults with the bench ROI's proportions;
+    60 Adam steps to keep it short): the iterates leave flow 0 at every
+    scale, but no step beats the contrast at flow 0, so on both routes the
+    solve returns flow exactly 0.  The scene's displacement is a static
+    refraction field, not motion over the window."""
+    from event_based_bos_tpu_torch.data.synthetic import (SyntheticBosConfig,
+                                                          generate_sequence)
+
+    h, w = 90, 160
+    seq = generate_sequence(SyntheticBosConfig(
+        height=h, width=w, duration=1.0 / 30.0, fps=30.0,
+        events_per_frame=8000, max_displacement=3.0,
+        plume_speed=900.0 * h / 720, seed=0))
+    evn = seq["events"]
+    evn[:, 2] += 10.0
+    assert np.array_equal(evn[:, :2], np.round(evn[:, :2]))
+    spec = tcmax.CmaxSpec(image_size=(h, w), roi=(0, h, w // 4, 3 * w // 4),
+                          n_iter=60, use_kernel=use_kernel)
+    tev = ttypes.events_from_ndarray(evn, device=CPU)
+    flow, aux = tcmax.estimate_frame_cmax(tev, None, None, spec, device=CPU)
+    assert flow.shape == (2, h, w)
+    assert not flow.any()
+    for hist in (np_of(x) for x in aux["loss_history"]):
+        assert (hist != hist[0]).any()
+        assert hist.min() >= hist[0]

@@ -2,9 +2,9 @@
 silent fallback to the CPU.
 
 The port must run on a GPU machine that has no JAX installed, so every
-module of ``event_based_bos_tpu_torch``, ``chip_smoke.py``,
-``tools/torch_solve_probe.py`` and ``tools/cmax_route_probe.py`` is
-imported in a subprocess where ``import jax`` fails.  Entry points called without
+module of ``event_based_bos_tpu_torch``, ``chip_smoke.py`` and
+``tools/torch_solve_probe.py`` is imported in a subprocess where
+``import jax`` fails.  Entry points called without
 ``device=`` must raise here (no GPU) rather than run on the CPU.
 """
 
@@ -38,8 +38,8 @@ def test_port_and_chip_smoke_import_without_jax():
         "sys.modules['event_based_bos_tpu'] = None\n"
         "import importlib\n"
         "sys.path.insert(0, 'tools')\n"
-        f"for m in {_port_modules()!r} + ['chip_smoke', 'torch_solve_probe',"
-        " 'cmax_route_probe']:\n"
+        f"for m in {_port_modules()!r} + ['chip_smoke', 'torch_solve_probe']:"
+        "\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'jax' and sys.modules[m]"
         " or m.startswith('jax.') or m.startswith('event_based_bos_tpu.')]\n"
@@ -53,8 +53,7 @@ def test_port_and_chip_smoke_import_without_jax():
 
 def test_no_port_source_names_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu")) + [
-        REPO / "chip_smoke.py", REPO / "tools" / "torch_solve_probe.py",
-        REPO / "tools" / "cmax_route_probe.py"]
+        REPO / "chip_smoke.py", REPO / "tools" / "torch_solve_probe.py"]
     offenders = [str(f) for f in files
                  if "event_based_bos_tpu." in f.read_text()
                  or "import jax" in f.read_text()]
