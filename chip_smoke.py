@@ -18,10 +18,16 @@ failure:
 3b. the CMax stencil kernels (forward and backward) against their plain
    versions on the card at the CMax cell's shapes (16 bins of the
    workload's histograms over the 720×644 ROI box, R = 2) for a N(0, 0.8)
-   flow, flow 0 (where both VJPs are exactly 0) and an integer flow, and
-   at 19×37 for R = 1, 3, 4: relative error < 1e-5; kernel and plain times
-   against the bound (the bytes, or the operations of the taps these
-   inputs need, whichever is larger);
+   flow, flow 0 (where both VJPs are exactly 0), an integer flow and a
+   flow whose shifts reach 2R (beyond the stencil's reach), at 19×37 for
+   R = 1, 3, 4, and at 19×37 on the kinks for R = 1–4 (dts ±0.5 and ±1,
+   integer flows: every shift an integer or a half-integer): relative
+   error < 1e-5; kernel, plain and library times (``grid_sample`` over the
+   bins and a sum, forward and backward) against the bound (the bytes, or
+   the operations of the taps these inputs need, whichever is larger).
+   Every time in phases 3 and 3b is the median of 20 CUDA-event spans
+   holding device time only, each after the L2 cache was flushed by
+   reading 64 MB;
 4. the main path at full width — the ``bench.py`` workload and spec: the
    IWE cache on the card, then ``estimate_frame`` (64→8 patches, 600
    iterations) — one warm-up frame, three timed frames and one frame that
@@ -98,7 +104,10 @@ def accuracy_epe(flow, gt_flow):
 
 def cuda_ms(fn, reps=20, warmup=3, flush=None):
     """Median CUDA-event time of ``fn`` in ms; ``flush`` runs between reps
-    (outside the timed span) to evict the inputs from L2."""
+    (outside the timed span) to evict the inputs from L2.  Before each rep
+    the stream spins for ~0.5 ms, so that the host has queued the start
+    event, ``fn``'s launches and the end event before the device reaches
+    them: the span holds device time, not the wrapper's host time."""
     import torch
 
     for _ in range(warmup):
@@ -107,6 +116,7 @@ def cuda_ms(fn, reps=20, warmup=3, flush=None):
     for _ in range(reps):
         if flush is not None:
             flush()
+        torch.cuda._sleep(1_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -115,6 +125,16 @@ def cuda_ms(fn, reps=20, warmup=3, flush=None):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def l2_flush(device):
+    """A callable that evicts the L2 cache (50 MB on an H100) by reading
+    64 MB: a read leaves no dirty lines, whose write-backs a memset flush
+    would add to the next kernel's time."""
+    import torch
+
+    buf = torch.zeros(64 << 20, dtype=torch.uint8, device=device)
+    return buf.max
 
 
 def card_line():
@@ -190,8 +210,7 @@ def check_vote_kernel(events, device):
           f"{err_scatter:.3e} vs the unshifted scatter (limit 1e-3)")
 
     # times at the main path's shapes (the integer-coordinate signed vote)
-    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    flush = flush_buf.zero_
+    flush = l2_flush(dev)
     kernel_ms = cuda_ms(lambda: iwe_cuda.hat_vote_image(x, y, v, (H, W)),
                         flush=flush)
     plain_ms = cuda_ms(lambda: iwe_cuda.hat_vote_plain(x, y, v, (H, W)),
@@ -222,7 +241,6 @@ def check_vote_kernel(events, device):
     print(f"vote times (median of 20, L2 flushed): kernel {kernel_ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms, "
           f"bound {bound_ms * 1e3:.2f} us ({bytes_moved} B, {bound_by})")
-    del flush_buf
     kernels.reset_launches()
     return {"name": "hat_vote_image", "route": "cuda",
             "source": "event_based_bos_tpu_torch/csrc/hat_vote.cu",
@@ -299,6 +317,40 @@ def cmax_bound(hists, flow, dts, radius, backward):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
 
 
+def grid_sample_yardstick(hists, flow, dts, g):
+    """The library yardstick of the stencil: ``grid_sample`` of the B
+    histograms as a (B, 1, h, w) batch at x + dt_b·flow (bilinear, zeros
+    outside, ``align_corners=True``), then ``.sum(0)`` — 2 calls; and the
+    backward of the two with respect to the grid for the cotangent ``g``.
+    It is the stencil only where |dt·flow| ≤ R and off the kinks, so only
+    its time is used; the port never calls it.  Returns ``(forward,
+    backward)`` callables, the grid built beforehand."""
+    import torch
+    import torch.nn.functional as F
+
+    b, h, w = hists.shape
+    dev = hists.device
+    rows = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    cols = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+    d = dts[:, None, None]
+    grid = torch.stack([2 * (cols + d * flow[1]) / (w - 1) - 1,
+                        2 * (rows + d * flow[0]) / (h - 1) - 1], -1)
+    grid = grid.contiguous().requires_grad_(True)
+    batch = hists[:, None]
+
+    def forward():
+        return F.grid_sample(batch, grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=True).sum(0)
+
+    out = forward()
+    cot = g[None]
+
+    def backward():
+        return torch.autograd.grad(out, grid, cot, retain_graph=True)[0]
+
+    return forward, backward
+
+
 def check_cmax_kernels(events, device):
     """Phase 3b: the CMax stencil kernels against their plain versions."""
     import numpy as np
@@ -334,10 +386,13 @@ def check_cmax_kernels(events, device):
                 float((out - p_out).abs().max()),
                 float((dflow - p_dflow).abs().max()), dflow, p_dflow)
 
+    reach = 2 * CMAX_RADIUS / float(dts.abs().max())
     flows = {
         "N(0,0.8)": rng.normal(0, 0.8, (2, h, w)),
         "zero": np.zeros((2, h, w)),
         "integer": rng.integers(-3, 4, (2, h, w)),
+        f"shifts to 2R (U(-{reach:.3g}, {reach:.3g}))":
+            rng.uniform(-reach, reach, (2, h, w)),
     }
     err_fwd = err_bwd = 0.0
     for name, fl in flows.items():
@@ -366,11 +421,25 @@ def check_cmax_kernels(events, device):
         print(f"cmax stencil 3x{hs}x{ws} R={radius}: forward rel {rf:.3e}, "
               f"VJP rel {rb:.3e}")
         assert rf < CMAX_REL_LIMIT and rb < CMAX_REL_LIMIT, (radius, rf, rb)
+    # on the kinks: every shift dt·flow an integer or a half-integer, to 2R
+    for radius in (1, 2, 3, 4):
+        hs, ws = 19, 37
+        hh = torch.as_tensor(rng.uniform(0, 3, (4, hs, ws)),
+                             dtype=torch.float32, device=dev)
+        fl = torch.as_tensor(rng.integers(-2 * radius, 2 * radius + 1,
+                                          (2, hs, ws)),
+                             dtype=torch.float32, device=dev)
+        dd = torch.tensor([-1.0, -0.5, 0.5, 1.0], device=dev)
+        gg = torch.as_tensor(rng.uniform(-1, 1, (hs, ws)),
+                             dtype=torch.float32, device=dev)
+        rf, rb = compare(hh, fl, dd, gg, radius)[:2]
+        print(f"cmax stencil 4x{hs}x{ws} R={radius} on the kinks: forward "
+              f"rel {rf:.3e}, VJP rel {rb:.3e}")
+        assert rf < CMAX_REL_LIMIT and rb < CMAX_REL_LIMIT, (radius, rf, rb)
 
     # times at the cell's shapes, the N(0, 0.8) flow
     fl = torch.as_tensor(flows["N(0,0.8)"], dtype=torch.float32, device=dev)
-    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    flush = flush_buf.zero_
+    flush = l2_flush(dev)
     r = CMAX_RADIUS
     timed = (
         ("cmax_stencil_fwd", 131, False,
@@ -382,14 +451,23 @@ def check_cmax_kernels(events, device):
          lambda: cmax_cuda.binned_warp_accumulate_plain_bwd(hists, fl, dts,
                                                             g, r)),
     )
+    library = grid_sample_yardstick(hists, fl, dts, g)
+    with torch.no_grad():
+        lib_rel = rel(library[0]()[0], cmax_cuda.cmax_stencil_fwd(hists, fl,
+                                                                  dts, r))
+    print(f"grid_sample + sum vs the forward kernel, flow N(0,0.8): rel "
+          f"{lib_rel:.3e} (the same function inside R, up to grid_sample's "
+          f"coordinate rounding; printed, not held)")
     entries = []
     for name, line, backward, kernel, plain in timed:
         kernel_ms = cuda_ms(kernel, flush=flush)
         plain_ms = cuda_ms(plain, flush=flush)
+        library_ms = cuda_ms(library[backward], flush=flush)
         bound_ms, bound_by, nbytes, ops = cmax_bound(hists, fl, dts, r,
                                                      backward)
         print(f"{name} times (median of 20, L2 flushed): kernel "
-              f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, grid_sample + "
+              f"sum (2 calls) {library_ms:.4f} ms, bound "
               f"{bound_ms * 1e3:.2f} us ({nbytes} B, {ops} f32 ops, "
               f"{bound_by})")
         entries.append({
@@ -398,8 +476,7 @@ def check_cmax_kernels(events, device):
             "replaces": f"event_based_bos_tpu/ops/cmax_pallas.py:{line}",
             "max_abs_err": err_bwd if backward else err_fwd,
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None})
-    del flush_buf
+            "bound_by": bound_by, "library_ms": library_ms})
     kernels.reset_launches()
     return entries
 
@@ -713,7 +790,8 @@ def main():
     kernels.library()
     print(f"build: {built['seconds']:.1f} s -> {built['path']}")
     for line in str(built["log"]).splitlines():
-        if "registers" in line or "spill" in line:
+        if ("Compiling entry" in line or "registers" in line
+                or "spill" in line):
             print(f"  ptxas: {line.strip()}")
 
     t0 = time.perf_counter()

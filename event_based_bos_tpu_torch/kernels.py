@@ -27,7 +27,8 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional
 
-__all__ = ["launches", "reset_launches", "build", "library", "NVCC_FLAGS"]
+__all__ = ["launches", "reset_launches", "build", "load", "library",
+           "NVCC_FLAGS"]
 
 SOURCE_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -62,21 +63,24 @@ def _sources() -> List[Path]:
     return sorted(SOURCE_DIR.glob("*.cu"))
 
 
-def _lib_path() -> Path:
+def _lib_path(sources: List[Path]) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libebt_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Dict[str, object]:
-    """Compile every ``csrc/*.cu`` (in parallel) and link the library.
+def build(sources: Optional[List[Path]] = None) -> Dict[str, object]:
+    """Compile every ``csrc/*.cu`` (or the ``sources`` given, e.g. an
+    earlier revision of a kernel for an A/B) in parallel and link the
+    library.
 
     Returns ``{"path", "seconds", "log"}``; ``log`` holds nvcc's output,
     including ``ptxas``' register and spill report.  Raises on failure.
     """
-    out = _lib_path()
+    sources = _sources() if sources is None else [Path(s) for s in sources]
+    out = _lib_path(sources)
     if out.is_file():
         return {"path": str(out), "seconds": 0.0, "log": "cached"}
     nvcc = _nvcc()
@@ -84,7 +88,7 @@ def build() -> Dict[str, object]:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         procs = []
-        for src in _sources():
+        for src in sources:
             obj = Path(tmp) / (src.stem + ".o")
             procs.append((src, obj, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
@@ -107,17 +111,26 @@ def build() -> Dict[str, object]:
             "log": "\n".join(log)}
 
 
+def load(path: str) -> ctypes.CDLL:
+    """Load a library built by :func:`build` and declare the entry points
+    it has."""
+    lib = ctypes.CDLL(path)
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    for name, args in (("ebt_hat_vote", [p, p, p, ll, i, i, p, p]),
+                       ("ebt_cmax_stencil_fwd",
+                        [p, p, p, i, i, i, i, i, p, p]),
+                       ("ebt_cmax_stencil_bwd",
+                        [p, p, p, p, i, i, i, i, i, p, p, p])):
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = i
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build()["path"])
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.ebt_hat_vote.argtypes = [p, p, p, ll, i, i, p, p]
-        lib.ebt_hat_vote.restype = i
-        lib.ebt_cmax_stencil_fwd.argtypes = [p, p, p, i, i, i, i, p, p]
-        lib.ebt_cmax_stencil_fwd.restype = i
-        lib.ebt_cmax_stencil_bwd.argtypes = [p, p, p, p, i, i, i, i, p, p, p]
-        lib.ebt_cmax_stencil_bwd.restype = i
-        _lib = lib
+        _lib = load(build()["path"])
     return _lib

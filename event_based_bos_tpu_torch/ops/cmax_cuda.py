@@ -14,8 +14,10 @@ The forward and the backward are :func:`cmax_stencil_fwd` and
 :func:`cmax_stencil_bwd`: for CUDA tensors each launches its kernel of
 ``csrc/cmax_stencil.cu`` and raises if it cannot; for CPU tensors they run
 :func:`binned_warp_accumulate_plain_fwd` and
-:func:`binned_warp_accumulate_plain_bwd`, which repeat the kernels'
-formulas.  Both are the hat sum at every radius (not
+:func:`binned_warp_accumulate_plain_bwd`, the full (2R+1)² hat sum, which
+is the kernels' specification (the kernels evaluate only the ≤ 2×2 taps per
+pixel and bin that can carry weight, and read the histograms in the layout
+of :func:`pitched_histograms`).  Both are the hat sum at every radius (not
 :func:`~event_based_bos_tpu_torch.ops.image_warp.warp_image_stencil`, which
 switches to the extrapolating 4-tap form at R = 1), and both take the TPU
 kernel's derivative ``dhat(a) = −sign(a)`` for ``|a| < 1``, else 0: at a
@@ -34,7 +36,7 @@ from .image_warp import _shift2
 
 __all__ = ["binned_warp_accumulate", "cmax_stencil_fwd", "cmax_stencil_bwd",
            "binned_warp_accumulate_plain_fwd",
-           "binned_warp_accumulate_plain_bwd"]
+           "binned_warp_accumulate_plain_bwd", "pitched_histograms"]
 
 MAX_RADIUS = 4
 
@@ -119,22 +121,49 @@ def _f32(*ts):
     return tuple(t.detach().to(torch.float32).contiguous() for t in ts)
 
 
+def _is_pitched(hists: torch.Tensor) -> bool:
+    b, h, w = hists.shape
+    s0, s1, s2 = hists.stride()
+    return (s2 == 1 and s1 % 4 == 0 and s1 >= w and s0 == h * s1
+            and hists.data_ptr() % 16 == 0)
+
+
+def pitched_histograms(hists: torch.Tensor) -> torch.Tensor:
+    """``hists`` ``[B, H, W]`` as float32 in the layout the kernels read:
+    rows that start on 16 bytes (a row stride that is a multiple of 4
+    floats) in planes that follow each other.  Returned as it is when it
+    already has that layout (a contiguous array of a width that is a
+    multiple of 4, or a view of one); else copied once into a zero-padded
+    ``[B, H, W']`` buffer and returned as its view ``[..., :W]``.  The
+    kernels never read the columns from ``W`` on."""
+    hists = hists.detach().to(torch.float32)
+    if _is_pitched(hists):
+        return hists
+    b, h, w = hists.shape
+    buf = torch.zeros((b, h, -(-w // 4) * 4), dtype=torch.float32,
+                      device=hists.device)
+    buf[..., :w] = hists
+    return buf[..., :w]
+
+
 def cmax_stencil_fwd(hists: torch.Tensor, flow: torch.Tensor,
                      dts: torch.Tensor, radius: int = 2) -> torch.Tensor:
     """The forward ``[H, W]`` float32, without autograd: the kernel for
     CUDA tensors (raises if it cannot launch), the plain version for CPU
     tensors."""
     _check(hists, flow, dts, radius)
-    hists, flow, dts = _f32(hists, flow, dts)
     if hists.device.type == "cpu":
-        return binned_warp_accumulate_plain_fwd(hists, flow, dts, radius)
+        return binned_warp_accumulate_plain_fwd(*_f32(hists, flow, dts),
+                                                radius)
+    hists = pitched_histograms(hists)
+    flow, dts = _f32(flow, dts)
     lib = kernels.library()
     b, h, w = hists.shape
     with torch.cuda.device(flow.device):
         out = torch.empty((h, w), dtype=torch.float32, device=flow.device)
         err = lib.ebt_cmax_stencil_fwd(
             hists.data_ptr(), flow.data_ptr(), dts.data_ptr(), b, h, w,
-            radius, out.data_ptr(), _stream(flow))
+            hists.stride(1), radius, out.data_ptr(), _stream(flow))
     if err != 0:
         raise RuntimeError(f"cmax_stencil forward kernel launch failed "
                            f"(cudaError {err})")
@@ -152,10 +181,11 @@ def cmax_stencil_bwd(hists: torch.Tensor, flow: torch.Tensor,
     if tuple(g.shape) != tuple(hists.shape[1:]) or g.device != flow.device:
         raise ValueError(f"g must be [H, W] = {tuple(hists.shape[1:])} on "
                          f"the flow's device, got {tuple(g.shape)}")
-    hists, flow, dts, g = _f32(hists, flow, dts, g)
     if hists.device.type == "cpu":
         return torch.stack(binned_warp_accumulate_plain_bwd(
-            hists, flow, dts, g, radius))
+            *_f32(hists, flow, dts, g), radius))
+    hists = pitched_histograms(hists)
+    flow, dts, g = _f32(flow, dts, g)
     lib = kernels.library()
     b, h, w = hists.shape
     with torch.cuda.device(flow.device):
@@ -163,8 +193,8 @@ def cmax_stencil_bwd(hists: torch.Tensor, flow: torch.Tensor,
                             device=flow.device)
         err = lib.ebt_cmax_stencil_bwd(
             hists.data_ptr(), flow.data_ptr(), g.data_ptr(), dts.data_ptr(),
-            b, h, w, radius, dflow[0].data_ptr(), dflow[1].data_ptr(),
-            _stream(flow))
+            b, h, w, hists.stride(1), radius, dflow[0].data_ptr(),
+            dflow[1].data_ptr(), _stream(flow))
     if err != 0:
         raise RuntimeError(f"cmax_stencil backward kernel launch failed "
                            f"(cudaError {err})")

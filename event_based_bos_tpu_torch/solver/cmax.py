@@ -27,7 +27,7 @@ import torch
 
 from .. import costs as costs_mod
 from ..device import resolve_device
-from ..ops.cmax_cuda import binned_warp_accumulate
+from ..ops.cmax_cuda import binned_warp_accumulate, pitched_histograms
 from ..ops.events import _masked_min_max
 from ..ops.image_warp import (resize_bilinear, shift_image_matrix,
                               warp_image_stencil)
@@ -269,8 +269,11 @@ def solve_cmax_dense(ev: Events, generator: Optional[torch.Generator],
         crop = _roi_box(spec)
         if crop is not None:
             bx0, bx1, by0, by1 = crop
-            # one copy per frame, not one per kernel call
-            hists = hists[:, bx0:bx1, by0:by1].contiguous()
+            hists = hists[:, bx0:bx1, by0:by1]
+        # one copy per frame, not one per kernel call (the kernels read
+        # rows that start on 16 bytes)
+        hists = (pitched_histograms(hists) if spec.use_kernel
+                 else hists.contiguous())
         # the kernel route's IWE is float32
         blur = _blur_operators(hists.shape[-2:], torch.float32
                                if spec.use_kernel else promoted, spec, dev)

@@ -3,7 +3,8 @@ silent fallback to the CPU.
 
 The port must run on a GPU machine that has no JAX installed, so every
 module of ``event_based_bos_tpu_torch``, ``chip_smoke.py`` and
-``tools/torch_solve_probe.py`` is imported in a subprocess where
+the GPU tools (``tools/torch_solve_probe.py``, ``tools/stencil_ab.py``) is
+imported in a subprocess where
 ``import jax`` fails.  Entry points called without
 ``device=`` must raise here (no GPU) rather than run on the CPU.
 """
@@ -38,7 +39,8 @@ def test_port_and_chip_smoke_import_without_jax():
         "sys.modules['event_based_bos_tpu'] = None\n"
         "import importlib\n"
         "sys.path.insert(0, 'tools')\n"
-        f"for m in {_port_modules()!r} + ['chip_smoke', 'torch_solve_probe']:"
+        f"for m in {_port_modules()!r} + ['chip_smoke', 'torch_solve_probe',"
+        " 'stencil_ab']:"
         "\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'jax' and sys.modules[m]"
@@ -53,7 +55,8 @@ def test_port_and_chip_smoke_import_without_jax():
 
 def test_no_port_source_names_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu")) + [
-        REPO / "chip_smoke.py", REPO / "tools" / "torch_solve_probe.py"]
+        REPO / "chip_smoke.py", REPO / "tools" / "torch_solve_probe.py",
+        REPO / "tools" / "stencil_ab.py"]
     offenders = [str(f) for f in files
                  if "event_based_bos_tpu." in f.read_text()
                  or "import jax" in f.read_text()]

@@ -11,7 +11,7 @@ def test_port_lint_clean():
     out = subprocess.run(
         [sys.executable, str(REPO / "tools" / "lint.py"),
          "event_based_bos_tpu_torch", "chip_smoke.py",
-         "tools/torch_solve_probe.py"],
+         "tools/torch_solve_probe.py", "tools/stencil_ab.py"],
         cwd=REPO, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert ", 0 problems" in out.stdout

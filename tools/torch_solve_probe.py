@@ -15,7 +15,8 @@ the bench ROI, 260 Adam steps):
   starts from flow 0, so its frames repeat;
 * one frame under ``torch.profiler``: CUDA kernels launched (per frame and
   per Adam step), their summed device time, the device's idle share of an
-  unprofiled frame, and the kernels that take the most device time.
+  unprofiled frame, the kernels that take the most device time, and the
+  port's own kernels (``csrc/*.cu``) with their in-loop time per launch.
 
 Prints one JSON line (also written to ``--out`` when given).  Needs a GPU.
 """
@@ -108,6 +109,9 @@ def main(argv=None):
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    own = {name: {"count": n, "ms": t, "ms_per_launch": t / n}
+           for name, (n, t) in by_name.items()
+           if "cmax_stencil_kernel" in name or "hat_vote_kernel" in name}
     frame_ms = statistics.median(ms)
     out = {
         "device": torch.cuda.get_device_name(0),
@@ -127,6 +131,7 @@ def main(argv=None):
         "device_idle_share": 1.0 - busy_ms / frame_ms,
         "top_kernels": [{"name": name[:90], "count": n, "ms": t}
                         for name, (n, t) in top],
+        "port_kernels": own,
     }
     line = json.dumps(out)
     if args.out:
