@@ -9,12 +9,20 @@ failure:
 
 1. card identity (``nvidia-smi`` name and power limit) and TF32 switched off;
 2. build of every CUDA kernel from ``event_based_bos_tpu_torch/csrc``
-   (``hat_vote.cu`` and ``cmax_stencil.cu``, one ``nvcc`` each, in parallel);
-3. the vote kernel against its plain PyTorch version on the card at the
-   main path's shapes (2^19 events, 720×1280): the signed vote bit-exact on
-   integer coordinates, ≤ 1e-5 on fractional / out-of-frame coordinates
-   with padding and weights and on a masked batch; kernel, plain and
-   library-call times against the HBM bound;
+   (``hat_vote.cu`` and ``cmax_stencil.cu``) and of the vote kernel's
+   earlier design (``tools/hat_vote_atomic.cu``), one ``nvcc`` each, in
+   parallel;
+3. the vote entry (``ops/iwe_cuda.py::hat_vote``) against its plain
+   PyTorch version on the card at the main path's shapes (2^19 events,
+   720×1280), bit-exact on integer coordinates: the signed, unsigned and
+   masked cache votes, the polarity pair (one launch), the CMax cell's
+   16-bin nudged vote into the 720×644 box (also against the per-bin
+   scatter, cropped) and a skewed input (every event in one 32×32 window;
+   also against the earlier kernel); ≤ 1e-5 on fractional / out-of-frame
+   coordinates with padding (3, 5) and weights, and on their box vote.
+   Times of the bare, signed, binned and skewed votes, the earlier kernel
+   (its wrapper's preparation and zeroed image included) in turns with
+   the current one, plain and ``index_add_`` times, against the HBM bound;
 3b. the CMax stencil kernels (forward and backward) against their plain
    versions on the card at the CMax cell's shapes (16 bins of the
    workload's histograms over the 720×644 ROI box, R = 2) for a N(0, 0.8)
@@ -32,20 +40,23 @@ failure:
    IWE cache on the card, then ``estimate_frame`` (64→8 patches, 600
    iterations) — one warm-up frame, three timed frames and one frame that
    counts host synchronisations; the flow must be finite, exactly +0.0
-   outside the ROI, launched through the kernel, the same bit for bit in
-   the three timed frames (same inputs and seed), and within 0.30 px EPE
-   of the synthetic ground truth;
+   outside the ROI, voted by one kernel launch a frame, the same bit for
+   bit in the three timed frames (same inputs and seed), within 0.30 px
+   EPE of the synthetic ground truth, and at the EPE every run since the
+   port began gave (0.1655 px);
 4b. the CMax path at full width — the same workload under ``CmaxSpec``'s
    defaults with the bench ROI (dense flow, 64→16 patches, 260 Adam steps,
    16 bins, R = 2): ``estimate_frame_cmax``, one warm-up frame and three
    timed frames; the flow must be finite, the same bit for bit in the
-   three timed frames, launched through both stencil kernels exactly 260
-   times a frame, must not lower the IWE variance, and the loss must move
+   three timed frames, voted by one kernel launch a frame and launched
+   through both stencil kernels exactly 260 times a frame, must not lower
+   the IWE variance, and the loss must move
    at every scale; EPE against the ground truth is recorded, with no
    limit.  Then the same spec, driven the same way, on a full-width
    translating dot pattern on integer sensor coordinates (motion inside
    R = 2's envelope): besides the same checks, the IWE variance must grow
-   and the flow's medians come within 0.5 px of the motion;
+   and the flow's medians come within 0.5 px of the motion, at the medians
+   every run since the CMax path was ported gave (2.358, −2.909 px);
 5. a small float64 scene solved on the card and on the CPU, which must
    agree to 1e-6;
 5b. a small float32 CMax scene (a translating dot pattern) solved through
@@ -64,6 +75,7 @@ import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 H, W = 720, 1280
 ROI = (0, 720, 320, 960)
@@ -76,6 +88,10 @@ CMAX_RADIUS = 2
 CMAX_REL_LIMIT = 1e-5      # bench.py's gate for the TPU kernel
 CMAX_SMALL_LIMIT = 1e-3    # px, kernel route on the card vs plain on the CPU
 DOT_MOTION = (2.0, -3.0)   # px/window: |dt·flow| <= 1.5 px, inside R = 2
+# the seed-0 pyramid EPE and the dots' CMax flow medians as every run since
+# the vote kernel and the stencil kernels were first checked gave them
+PYRAMID_EPE = "0.1655"
+DOT_MEDIANS = ("2.358", "-2.909")
 
 
 def make_workload(seed=0):
@@ -137,6 +153,42 @@ def l2_flush(device):
     return buf.max
 
 
+def atomic_vote_library(source=None):
+    """The vote kernel's earlier design (``tools/hat_vote_atomic.cu``: one
+    thread per event, one global ``atomicAdd`` per corner into an image
+    zeroed beforehand) built from ``source`` (that file by default) into a
+    library of its own, for timing in turns against the current kernel;
+    its entry point is ``ebt_hat_vote(x, y, v, n, h, w, out, stream)``."""
+    import ctypes
+
+    from event_based_bos_tpu_torch import kernels
+
+    if source is None:
+        source = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "tools", "hat_vote_atomic.cu")
+    lib = kernels.load(kernels.build([source])["path"])
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.ebt_hat_vote.argtypes = [p, p, p, ll, i, i, p, p]
+    lib.ebt_hat_vote.restype = i
+    return lib
+
+
+def atomic_vote(lib, x, y, v, size, out=None):
+    """``lib``'s vote of the prepared float32 ``x``, ``y``, ``v`` into a
+    new zeroed ``[H, W]`` image (as its wrapper did), or added into
+    ``out``.  Counts no launch."""
+    import torch
+
+    if out is None:
+        out = torch.zeros(size, dtype=torch.float32, device=x.device)
+    err = lib.ebt_hat_vote(x.data_ptr(), y.data_ptr(), v.data_ptr(),
+                           x.numel(), size[0], size[1], out.data_ptr(),
+                           torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"atomic vote launch failed (cudaError {err})")
+    return out
+
+
 def card_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -144,42 +196,167 @@ def card_line():
         text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def check_vote_kernel(events, device):
-    """Phase 3: the vote kernel against its plain version, full size."""
+def atomic_prepared(ev):
+    """``x``, ``y``, ``v`` of the signed cache vote as the atomic kernel's
+    wrapper prepared them from the event record, op for op (about ten
+    elementwise launches)."""
+    import torch
+
+    val = torch.where(ev.valid, torch.ones_like(ev.x), 0.0)
+    val = val * torch.where(ev.p > 0, 1.0, -1.0)
+    val = val * 1.0
+    x = torch.where(ev.valid, ev.x, -2.0).to(torch.float32).contiguous()
+    y = torch.where(ev.valid, ev.y, -2.0).to(torch.float32).contiguous()
+    return x + 0, y + 0, val.to(torch.float32).contiguous()
+
+
+def atomic_signed_vote(lib, ev, size):
+    """The signed cache vote as it was made with the atomic kernel: the
+    preparation, a zeroed image, the kernel."""
+    return atomic_vote(lib, *atomic_prepared(ev), size)
+
+
+def scatter_box_histograms(ev, spec):
+    """The CMax histograms as the solve built them before the vote kernel
+    served them: one torch scatter a bin, stacked, cropped to the widened
+    ROI box."""
+    import torch
+
+    from event_based_bos_tpu_torch.ops import iwe
+    from event_based_bos_tpu_torch.solver.cmax import _roi_box, time_bin_index
+
+    bins = time_bin_index(ev, spec.time_bins)
+    hists = torch.stack([iwe.bilinear_vote(ev.mask_where(bins == i),
+                                           spec.image_size)
+                         for i in range(spec.time_bins)])
+    bx0, bx1, by0, by1 = _roi_box(spec)
+    return hists[:, bx0:bx1, by0:by1]
+
+
+def span_ms(fn, flush=None, reps=5):
+    """Median CUDA-event span around ``fn`` as the host issues it (no spin
+    before it, so a call of many launches shows its host time)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        if flush is not None:
+            flush()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def vote_bound(nbytes, live_votes):
+    """Least time (ms) of a vote on an H100 SXM and what bounds it: the
+    bytes (each input read once, each output written once) against ~18 f32
+    operations a live corner vote (floors, offsets, corner products, the
+    add)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 18 * live_votes / F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def corner_index_add(corners, planes, h, pitch):
+    """The library yardstick of a vote: the flat indices and values of its
+    live corner votes (built beforehand), and one ``index_add_`` of them
+    into a zeroed ``[planes·h·pitch]`` buffer."""
+    import torch
+
+    idx = torch.cat([((q * h + r) * pitch + c)[k]
+                     for q, r, c, _v, k in corners])
+    val = torch.cat([v[k] for _q, _r, _c, v, k in corners])
+    size = planes * h * pitch
+    return lambda: torch.zeros(size, device=idx.device).index_add_(0, idx,
+                                                                   val)
+
+
+def check_vote_kernel(events, device, atomic_lib):
+    """Phase 3: the vote kernel against its plain version, full size, and
+    its times beside those of the atomic kernel (``atomic_lib``)."""
     import numpy as np
     import torch
 
-    from event_based_bos_tpu_torch import events_from_ndarray, kernels
+    from event_based_bos_tpu_torch import (events_from_arrays,
+                                           events_from_ndarray, kernels)
     from event_based_bos_tpu_torch.ops import iwe, iwe_cuda
+    from event_based_bos_tpu_torch.solver.cmax import (_roi_box,
+                                                       binned_histograms,
+                                                       time_bin_index)
 
     dev = torch.device(device)
     ev = events_from_ndarray(events, capacity=CAPACITY, device=dev)
     sign = torch.where(ev.p > 0, 1.0, -1.0)
-
-    # the signed vote, integer sensor coordinates: bit-exact
-    got = iwe_cuda.signed_vote_cuda(ev, (H, W))
+    # the bare function's inputs, prepared as the earlier wrapper did
     x = torch.where(ev.valid, ev.x, -2.0).contiguous()
     y = torch.where(ev.valid, ev.y, -2.0).contiguous()
     v = torch.where(ev.valid, sign, 0.0).contiguous()
-    plain = iwe_cuda.hat_vote_plain(x, y, v, (H, W))
-    scatter = iwe.bilinear_vote(ev, (H, W), weight=sign)
-    torch.cuda.synchronize()
-    assert torch.equal(got, plain), "signed vote differs from its plain version"
-    assert torch.equal(got, scatter), "signed vote differs from the scatter"
-    print(f"vote integer coords: bit-exact vs plain and scatter "
-          f"(|sum| {float(got.abs().sum()):.0f}, live events "
-          f"{int(ev.count())})")
+    plain = iwe_cuda.hat_vote_plain
 
-    # a masked batch: still bit-exact
+    def exact(name, got, *refs):
+        torch.cuda.synchronize()
+        for ref_name, ref in refs:
+            assert got.shape == ref.shape and torch.equal(got, ref), \
+                f"vote {name} differs from {ref_name}"
+        print(f"vote {name}: bit-exact vs "
+              + ", ".join(ref_name for ref_name, _ in refs))
+
+    # integer sensor coordinates: bit-exact
+    exact("signed, integer coordinates",
+          iwe_cuda.signed_vote_cuda(ev, (H, W)),
+          ("plain", plain(ev.x, ev.y, None, (H, W), valid=ev.valid,
+                          sign=ev.p)),
+          ("the scatter", iwe.bilinear_vote(ev, (H, W), weight=sign)),
+          ("the atomic kernel", atomic_vote(atomic_lib, x, y, v, (H, W))))
+    exact("unsigned, integer coordinates",
+          iwe_cuda.bilinear_vote_cuda(ev, (H, W)),
+          ("plain", plain(ev.x, ev.y, None, (H, W), valid=ev.valid)),
+          ("the scatter", iwe.bilinear_vote(ev, (H, W))))
+    kernels.reset_launches()
+    pol = iwe_cuda.polarity_iwe_cuda(ev, (H, W))
+    assert kernels.launches["hat_vote_image"] == 1, kernels.launches
+    exact("polarity pair in one launch", pol,
+          ("plain", plain(ev.x, ev.y, None, (H, W), valid=ev.valid,
+                          polarity_planes=ev.p)),
+          ("the scatter", iwe.create_polarity_iwe(ev, (H, W))))
     rng = np.random.default_rng(1)
     keep = torch.as_tensor(rng.integers(0, 2, CAPACITY) > 0, device=dev)
     masked = ev.mask_where(keep)
-    got_m = iwe_cuda.signed_vote_cuda(masked, (H, W))
-    sign_m = torch.where(masked.p > 0, 1.0, -1.0)
-    assert torch.equal(got_m, iwe.bilinear_vote(masked, (H, W),
-                                                 weight=sign_m)), \
-        "masked signed vote differs from the scatter"
-    print("vote masked batch: bit-exact vs scatter")
+    exact("signed, masked batch", iwe_cuda.signed_vote_cuda(masked, (H, W)),
+          ("the scatter", iwe.bilinear_vote(masked, (H, W), weight=torch.where(
+              masked.p > 0, 1.0, -1.0))))
+    spec = cmax_cell_spec()
+    box = _roi_box(spec)
+    bx0, bx1, by0, by1 = box
+    bins = time_bin_index(ev, spec.time_bins)
+    bshape = (bx1 - bx0, by1 - by0)
+    bpitch = -(-bshape[1] // 4) * 4
+    bargs = dict(valid=ev.valid, plane=bins, planes=spec.time_bins,
+                 origin=(bx0, by0), pitch=bpitch, nudge=True)
+    got_b, _dts = binned_histograms(ev, spec, crop=box, pitched=True)
+    exact(f"{spec.time_bins}-bin box {bshape[0]}x{bshape[1]}, nudged",
+          got_b, ("plain", plain(ev.x, ev.y, None, bshape, **bargs)),
+          ("the per-bin scatter, cropped", scatter_box_histograms(ev, spec)))
+    # every event in one 32x32 window: 512 votes a pixel
+    n = CAPACITY
+    skew = events_from_arrays(rng.integers(64, 96, n),
+                              rng.integers(128, 160, n),
+                              np.sort(rng.uniform(0, 1, n)),
+                              rng.integers(0, 2, n) * 2 - 1, device=dev)
+    kx, ky = skew.x.contiguous(), skew.y.contiguous()
+    kv = torch.where(skew.p > 0, 1.0, -1.0).contiguous()
+    exact("skewed input (2^19 events in one 32x32 window)",
+          iwe_cuda.hat_vote_image(kx, ky, kv, (H, W)),
+          ("plain", plain(kx, ky, kv, (H, W))),
+          ("the atomic kernel", atomic_vote(atomic_lib, kx, ky, kv, (H, W))))
 
     # fractional and out-of-frame coordinates, padding (3, 5), weights
     ph, pw = 3, 5
@@ -191,15 +368,18 @@ def check_vote_kernel(events, device):
                           dtype=torch.float32, device=dev)
     frac = ev._replace(x=fx, y=fy).mask_where(keep)
     got_f = iwe_cuda.bilinear_vote_cuda(frac, (H, W), wgt, (ph, pw))
-    xf = (torch.where(frac.valid, fx, -2.0) + ph).contiguous()
-    yf = (torch.where(frac.valid, fy, -2.0) + pw).contiguous()
-    vf = torch.where(frac.valid, wgt, 0.0).contiguous()
-    plain_f = iwe_cuda.hat_vote_plain(xf, yf, vf, (H + 2 * ph, W + 2 * pw))
+    plain_f = plain(fx, fy, wgt, (H + 2 * ph, W + 2 * pw), valid=frac.valid,
+                    offset=(ph, pw))
     scatter_f = iwe.bilinear_vote(frac, (H, W), wgt, (ph, pw))
+    got_fb, _ = binned_histograms(frac, spec, crop=box, pitched=True)
+    plain_fb = plain(fx, fy, None, bshape, **dict(
+        bargs, valid=frac.valid, plane=time_bin_index(frac, spec.time_bins)))
     err_plain = float((got_f - plain_f).abs().max())
     err_scatter = float((got_f - scatter_f).abs().max())
+    err_box = float((got_fb - plain_fb).abs().max())
     assert got_f.shape == (H + 2 * ph, W + 2 * pw)
     assert err_plain <= 1e-5, f"fractional vote vs plain: {err_plain:.3e}"
+    assert err_box <= 1e-5, f"fractional box vote vs plain: {err_box:.3e}"
     # The scatter floors the unshifted coordinate (with its 1e-6 nudge); the
     # kernel sees x + ph, whose f32 rounding at ~1280 px moves the hat
     # weights by up to ulp(1280)/2 = 6e-5 each.  A wrong corner would cost
@@ -207,47 +387,87 @@ def check_vote_kernel(events, device):
     assert err_scatter <= 1e-3, f"fractional vote vs scatter: {err_scatter:.3e}"
     print(f"vote fractional/out-of-frame, padding {(ph, pw)}, weights, "
           f"masked: max|diff| {err_plain:.3e} vs plain (limit 1e-5), "
-          f"{err_scatter:.3e} vs the unshifted scatter (limit 1e-3)")
+          f"{err_scatter:.3e} vs the unshifted scatter (limit 1e-3); the "
+          f"nudged box vote of these coordinates {err_box:.3e} vs plain "
+          f"(limit 1e-5)")
 
-    # times at the main path's shapes (the integer-coordinate signed vote)
+    # times at the main path's shapes, integer coordinates; the atomic
+    # kernel in turns with the current one
     flush = l2_flush(dev)
-    kernel_ms = cuda_ms(lambda: iwe_cuda.hat_vote_image(x, y, v, (H, W)),
-                        flush=flush)
-    plain_ms = cuda_ms(lambda: iwe_cuda.hat_vote_plain(x, y, v, (H, W)),
-                       flush=flush)
-    # library yardstick: index_add_ of the 4·n corner votes, built beforehand
-    r0 = torch.floor(x).clamp(-2, H).long()
-    c0 = torch.floor(y).clamp(-2, W).long()
-    idx, val = [], []
-    for a in (0, 1):
-        for b in (0, 1):
-            r, c = r0 + a, c0 + b
-            inb = (r >= 0) & (r < H) & (c >= 0) & (c < W)
-            wr = (1 - (x - torch.floor(x))) if a == 0 else x - torch.floor(x)
-            wc = (1 - (y - torch.floor(y))) if b == 0 else y - torch.floor(y)
-            idx.append(torch.where(inb, r * W + c, 0))
-            val.append(torch.where(inb, wr * wc * v, 0.0))
-    idx, val = torch.cat(idx), torch.cat(val)
-    library_ms = cuda_ms(
-        lambda: torch.zeros(H * W, device=dev).index_add_(0, idx, val),
-        flush=flush)
-    n = x.numel()
-    bytes_moved = 3 * 4 * n + 4 * H * W
+
+    def turns(new, old):
+        runs = {"new": [], "old": []}
+        for k in ("old", "new", "new", "old"):
+            runs[k].append(cuda_ms(new if k == "new" else old, flush=flush))
+        return statistics.median(runs["new"]), statistics.median(runs["old"])
+
     live = int((v != 0).sum())
-    flops = 18 * live  # floors, offsets, corner products, 4 atomic adds
-    bound_ms = max(bytes_moved / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
-    bound_by = ("bytes" if bytes_moved / HBM_BYTES_PER_S
-                >= flops / F32_FLOPS else "operations")
-    print(f"vote times (median of 20, L2 flushed): kernel {kernel_ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms, "
-          f"bound {bound_ms * 1e3:.2f} us ({bytes_moved} B, {bound_by})")
+    times = {}
+    bare, bare_atomic = turns(
+        lambda: iwe_cuda.hat_vote_image(x, y, v, (H, W)),
+        lambda: atomic_vote(atomic_lib, x, y, v, (H, W)))
+    times["bare"] = dict(
+        ms=bare, atomic_ms=bare_atomic,
+        plain_ms=cuda_ms(lambda: plain(x, y, v, (H, W)), flush=flush),
+        library_ms=cuda_ms(corner_index_add(iwe_cuda.vote_corners(
+            x, y, v, (H, W)), 1, H, W), flush=flush),
+        nbytes=3 * 4 * n + 4 * H * W)
+    signed, signed_atomic = turns(
+        lambda: iwe_cuda.signed_vote_cuda(ev, (H, W)),
+        lambda: atomic_signed_vote(atomic_lib, ev, (H, W)))
+    times["signed"] = dict(
+        ms=signed, atomic_ms=signed_atomic,
+        plain_ms=cuda_ms(lambda: plain(ev.x, ev.y, None, (H, W),
+                                       valid=ev.valid, sign=ev.p),
+                         flush=flush),
+        library_ms=times["bare"]["library_ms"], nbytes=13 * n + 4 * H * W)
+    # the 16-bin box vote alone (bins made beforehand), and the whole
+    # binned_histograms call (the bin index, ~8 torch launches, included)
+    times["binned"] = dict(
+        ms=cuda_ms(lambda: iwe_cuda.hat_vote(ev.x, ev.y, None, bshape,
+                                             **bargs), flush=flush),
+        call_ms=cuda_ms(lambda: binned_histograms(ev, spec, crop=box,
+                                                  pitched=True), flush=flush),
+        span_ms=span_ms(lambda: binned_histograms(ev, spec, crop=box,
+                                                  pitched=True), flush),
+        scatter_span_ms=span_ms(lambda: scatter_box_histograms(ev, spec),
+                                flush),
+        plain_ms=cuda_ms(lambda: plain(ev.x, ev.y, None, bshape, **bargs),
+                         flush=flush),
+        library_ms=cuda_ms(corner_index_add(iwe_cuda.vote_corners(
+            ev.x, ev.y, None, bshape, **{k: a for k, a in bargs.items()
+                                         if k != "pitch"}),
+            spec.time_bins, bshape[0], bpitch), flush=flush),
+        nbytes=13 * n + 4 * spec.time_bins * bshape[0] * bpitch)
+    skewed, skewed_atomic = turns(
+        lambda: iwe_cuda.hat_vote_image(kx, ky, kv, (H, W)),
+        lambda: atomic_vote(atomic_lib, kx, ky, kv, (H, W)))
+    times["skewed"] = dict(ms=skewed, atomic_ms=skewed_atomic,
+                           nbytes=3 * 4 * n + 4 * H * W)
+    for name, t in times.items():
+        t["bound_ms"], t["bound_by"] = vote_bound(
+            t["nbytes"], n if name == "skewed" else live)
+        print(f"vote {name} times (median of 20, L2 flushed): kernel "
+              f"{t['ms']:.4f} ms"
+              + (f", atomic kernel {t['atomic_ms']:.4f} ms"
+                 if "atomic_ms" in t else "")
+              + (f", plain {t['plain_ms']:.4f} ms, index_add_ "
+                 f"{t['library_ms']:.4f} ms" if "plain_ms" in t else "")
+              + (f", the whole call {t['call_ms']:.4f} ms, its span as "
+                 f"issued {t['span_ms']:.4f} ms (the per-bin scatter "
+                 f"{t['scatter_span_ms']:.3f} ms)" if "span_ms" in t else "")
+              + f", bound {t['bound_ms'] * 1e3:.2f} us ({t['nbytes']} B, "
+              f"{t['bound_by']})")
     kernels.reset_launches()
+    bare_t = times.pop("bare")
     return {"name": "hat_vote_image", "route": "cuda",
             "source": "event_based_bos_tpu_torch/csrc/hat_vote.cu",
             "replaces": "event_based_bos_tpu/ops/iwe_pallas.py:153",
-            "max_abs_err": err_plain, "ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "max_abs_err": max(err_plain, err_box), "ms": bare_t["ms"],
+            "plain_ms": bare_t["plain_ms"], "bound_ms": bare_t["bound_ms"],
+            "bound_by": bare_t["bound_by"],
+            "library_ms": bare_t["library_ms"],
+            "atomic_ms": bare_t["atomic_ms"], **times}
 
 
 def cmax_cell_spec():
@@ -258,13 +478,12 @@ def cmax_cell_spec():
 
 
 def box_histograms(ev, spec):
-    """The per-bin histograms over the widened ROI box, and the bin dts."""
+    """The per-bin histograms over the widened ROI box in the stencil
+    kernels' layout, as the solve makes them, and the bin dts."""
     from event_based_bos_tpu_torch.solver.cmax import (_roi_box,
                                                        binned_histograms)
 
-    hists, dts = binned_histograms(ev, spec)
-    bx0, bx1, by0, by1 = _roi_box(spec)
-    return hists[:, bx0:bx1, by0:by1].contiguous(), dts
+    return binned_histograms(ev, spec, crop=_roi_box(spec), pitched=True)
 
 
 def iwe_variances(ev, flow, spec):
@@ -551,7 +770,7 @@ def run_main_path(events, frame, gt_flow, device):
     print(f"main path: per-frame {statistics.median(frame_ms):.1f} ms "
           f"(frames {', '.join(f'{t:.1f}' for t in frame_ms)}; IWE cache "
           f"{statistics.median(cache_ms):.3f} ms; warm-up {warm_s:.1f} s), "
-          f"EPE {epe:.4f} px (zero-flow {zero_epe:.4f} px), "
+          f"EPE {epe:.4f} px ({epe!r}; zero-flow {zero_epe:.4f} px), "
           f"vote launches {launches['hat_vote_image']} over 5 frames, "
           f"host syncs in one frame {syncs}, timed frames bit-identical "
           f"{repeatable}, peak memory {peak_gib:.2f} GiB, "
@@ -559,7 +778,9 @@ def run_main_path(events, frame, gt_flow, device):
     assert flow_np.shape == (2, H, W) and np.isfinite(flow_np).all()
     assert (flow_np[:, outside] == 0).all()
     assert not np.signbit(flow_np[:, outside]).any(), "−0.0 outside the ROI"
-    assert launches["hat_vote_image"] > 0, "the main path skipped the kernel"
+    assert launches["hat_vote_image"] == 5, \
+        f"{launches['hat_vote_image']} vote launches in 5 frames, expected 5"
+    assert f"{epe:.4f}" == PYRAMID_EPE, f"EPE {epe!r} moved from {PYRAMID_EPE}"
     assert repeatable, "the same frame and seed gave different flows"
     assert epe < EPE_LIMIT, f"EPE {epe:.4f} px ≥ {EPE_LIMIT}"
     return launches
@@ -615,10 +836,12 @@ def drive_cmax(scene, events, gt_flow, device):
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     repeatable = all(torch.equal(f, flows[0]) for f in flows[1:])
 
-    # the histograms alone, and the contrast at flow 0 and at the solution
+    # the histograms alone as the solve makes them, and the contrast at
+    # flow 0 and at the solution
     s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     s.record()
-    hists, _dts = binned_histograms(ev, spec)
+    hists, _dts = binned_histograms(ev, spec, crop=_roi_box(spec),
+                                    pitched=True)
     e.record()
     e.synchronize()
     hist_ms = s.elapsed_time(e)
@@ -627,8 +850,7 @@ def drive_cmax(scene, events, gt_flow, device):
     flow_np = flow.cpu().numpy()
     epe = cmax_epe(flow_np, gt_flow)
     zero_epe = cmax_epe(np.zeros_like(flow_np), gt_flow)
-    per_frame = {k: launches[k] / 4 for k in ("cmax_stencil_fwd",
-                                               "cmax_stencil_bwd")}
+    per_frame = {k: launches[k] / 4 for k in launches}
     hist = [h.cpu().numpy() for h in aux["loss_history"]]
     ms = statistics.median(frame_ms)
     bx0, bx1, by0, by1 = _roi_box(spec)
@@ -648,7 +870,8 @@ def drive_cmax(scene, events, gt_flow, device):
                       for h in hist))
     assert flow_np.shape == (2, H, W) and np.isfinite(flow_np).all()
     for k, n in per_frame.items():
-        assert n == steps, f"{k}: {n} launches a frame, expected {steps}"
+        want = 1 if k == "hat_vote_image" else steps
+        assert n == want, f"{k}: {n} launches a frame, expected {want}"
     assert repeatable, f"the same frame gave different CMax flows ({scene})"
     return launches, flow_np, var0, var1, hist
 
@@ -685,9 +908,11 @@ def check_cmax_sharpens(device):
     f = flow_np[:, ROI[0]:ROI[1], ROI[2]:ROI[3]]
     med = [float(np.median(f[i])) for i in (0, 1)]
     print(f"cmax translating dots: flow medians {med[0]:.3f}, {med[1]:.3f} "
-          f"(motion {vx:g}, {vy:g}; limit 0.5 px)")
+          f"({med[0]!r}, {med[1]!r}; motion {vx:g}, {vy:g}; limit 0.5 px)")
     assert var1 > var0, f"the IWE variance did not grow: {var0} -> {var1}"
     assert abs(med[0] - vx) < 0.5 and abs(med[1] - vy) < 0.5, med
+    assert tuple(f"{m:.3f}" for m in med) == DOT_MEDIANS, \
+        f"the dots' medians {med} moved from {DOT_MEDIANS}"
 
 
 def check_small_reference(device):
@@ -786,7 +1011,11 @@ def main():
     print(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
           f"cudnn {torch.backends.cudnn.allow_tf32}")
 
-    built = kernels.build()
+    # the port's kernels and the atomic vote kernel, built side by side
+    with ThreadPoolExecutor(2) as pool:
+        building = pool.submit(kernels.build)
+        atomic = pool.submit(atomic_vote_library)
+        built, atomic_lib = building.result(), atomic.result()
     kernels.library()
     print(f"build: {built['seconds']:.1f} s -> {built['path']}")
     for line in str(built["log"]).splitlines():
@@ -799,11 +1028,12 @@ def main():
     print(f"workload: {len(events)} events, {H}x{W} "
           f"({time.perf_counter() - t0:.1f} s to generate)")
 
-    entries = [check_vote_kernel(events, "cuda")]
+    entries = [check_vote_kernel(events, "cuda", atomic_lib)]
     entries += check_cmax_kernels(events, "cuda")
     launches = run_main_path(events, frame, gt_flow, "cuda")
     entries[0]["launches"] = launches["hat_vote_image"]
     cmax_launches = run_cmax_path(events, gt_flow, "cuda")
+    entries[0]["launches_cmax"] = cmax_launches["hat_vote_image"]
     for entry in entries[1:]:
         entry["launches"] = cmax_launches[entry["name"]]
     check_cmax_sharpens("cuda")

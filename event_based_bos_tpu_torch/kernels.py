@@ -2,7 +2,7 @@
 
 The kernels live in ``csrc/*.cu`` with a plain C interface:
 ``csrc/hat_vote.cu`` (the bilinear event vote, entry point
-``ebt_hat_vote``) and ``csrc/cmax_stencil.cu`` (the time-binned CMax
+``ebt_vote``) and ``csrc/cmax_stencil.cu`` (the time-binned CMax
 stencil, ``ebt_cmax_stencil_fwd`` and ``ebt_cmax_stencil_bwd``).  At
 first use each source is compiled by ``nvcc`` for ``sm_90a`` (all sources
 at once, one ``nvcc`` process each), linked into one shared library under the
@@ -10,9 +10,9 @@ git-ignored ``build/kernels/`` directory beside the package, and loaded
 with ``ctypes``.  The library name carries a hash of the sources and
 flags, so an edited kernel is rebuilt and an unchanged one is reused.
 
-The module holds the port's only global state: the loaded library handle
-and :data:`launches`, the per-kernel launch counter that each wrapper bumps
-exactly where it launches its kernel.
+The module holds the loaded library handle and :data:`launches`, the
+per-kernel launch counter that each wrapper bumps exactly where it launches
+its kernel.
 """
 
 from __future__ import annotations
@@ -115,8 +115,10 @@ def load(path: str) -> ctypes.CDLL:
     """Load a library built by :func:`build` and declare the entry points
     it has."""
     lib = ctypes.CDLL(path)
-    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    for name, args in (("ebt_hat_vote", [p, p, p, ll, i, i, p, p]),
+    p, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_float)
+    vote = [p, p, p, p, i, p, f, p, i, ll, f, f, i, i, i, i, i, i, p, p]
+    for name, args in (("ebt_vote", vote),
                        ("ebt_cmax_stencil_fwd",
                         [p, p, p, i, i, i, i, i, p, p]),
                        ("ebt_cmax_stencil_bwd",

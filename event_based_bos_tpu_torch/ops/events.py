@@ -17,7 +17,8 @@ def _masked_min_max(v: torch.Tensor, valid: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Min and max of ``v`` over the slots where ``valid`` (last axis);
     ``+inf`` / ``−inf`` when no slot is live."""
-    big = torch.tensor(torch.inf, dtype=v.dtype, device=v.device)
-    vmin = torch.amin(torch.where(valid, v, big), dim=-1)
-    vmax = torch.amax(torch.where(valid, v, -big), dim=-1)
+    # Python scalars: no host-to-device copy, which would wait for the
+    # stream
+    vmin = torch.amin(torch.where(valid, v, torch.inf), dim=-1)
+    vmax = torch.amax(torch.where(valid, v, -torch.inf), dim=-1)
     return vmin, vmax

@@ -5,9 +5,10 @@ motion warps the events, the warped events form a blurred image of warped
 events (IWE), and Adam maximizes a contrast of that image (variance,
 gradient magnitude), coarse-to-fine for the dense patch model.
 
-With ``time_bins > 0`` the events are scattered once per frame into
-per-bin histograms, and the loop warps images instead of events: the dense
-model's IWE is the binned stencil of
+With ``time_bins > 0`` the events are voted once per frame into per-bin
+histograms (one launch of the vote kernel of ``ops/iwe_cuda.py`` on the
+card), and the loop warps images instead of events: the dense model's IWE
+is the binned stencil of
 :func:`~event_based_bos_tpu_torch.ops.cmax_cuda.binned_warp_accumulate`
 (the CUDA kernels on the card) or, with ``use_kernel=False``, the
 :func:`~event_based_bos_tpu_torch.ops.image_warp.warp_image_stencil` sum
@@ -27,18 +28,20 @@ import torch
 
 from .. import costs as costs_mod
 from ..device import resolve_device
-from ..ops.cmax_cuda import binned_warp_accumulate, pitched_histograms
+from ..ops.cmax_cuda import binned_warp_accumulate
 from ..ops.events import _masked_min_max
 from ..ops.image_warp import (resize_bilinear, shift_image_matrix,
                               warp_image_stencil)
 from ..ops.iwe import bilinear_vote, blur_operators, gaussian_blur
+from ..ops.iwe_cuda import hat_vote
 from ..ops.warp import (calculate_reftime, warp_event_2dof,
                         warp_event_dense_flow)
 from ..optim import SAMPLER_METHODS, SCIPY_METHODS, run_first_order
 from ..types import Events, PatchGrid
 from .generative import dense_operators, patch_to_dense
 
-__all__ = ["CmaxSpec", "contrast_loss", "binned_histograms", "binned_iwe",
+__all__ = ["CmaxSpec", "contrast_loss", "time_bin_index",
+           "binned_histograms", "binned_iwe",
            "scale_iterations", "solve_cmax_translation", "solve_cmax_dense",
            "estimate_frame_cmax"]
 
@@ -121,20 +124,45 @@ def _roi_iwe(ev: Events, spec: CmaxSpec, blur=None) -> torch.Tensor:
     return iwe
 
 
-def binned_histograms(ev: Events, spec: CmaxSpec):
+def time_bin_index(ev: Events, time_bins: int) -> torch.Tensor:
+    """Each event's time bin ``[n]`` int32: ``time_bins`` equal bins over
+    the valid events' time span."""
+    tmin, tmax = _masked_min_max(ev.t, ev.valid)
+    frac = torch.clamp((ev.t - tmin) / torch.clamp(tmax - tmin, min=1e-30),
+                       0.0, 1.0)
+    return torch.clamp(torch.floor(frac * time_bins).to(torch.int32), 0,
+                       time_bins - 1)
+
+
+def binned_histograms(ev: Events, spec: CmaxSpec,
+                      crop: Optional[Tuple[int, int, int, int]] = None,
+                      pitched: bool = False):
     """Scatter the events once into ``time_bins`` histograms ``[B, H, W]``
     and the per-bin ``dt`` ``[B]``.
 
     ``dt_b`` is the bin center in warp-normalized time relative to the
-    direction: for ``"middle"`` the centers span (−0.5, 0.5).
+    direction: for ``"middle"`` the centers span (−0.5, 0.5).  ``crop =
+    (x0, x1, y0, y1)`` gives that box of the histograms instead (the same
+    numbers as cropping the full ones); ``pitched`` returns it in the
+    stencil kernels' layout (that of ``ops/cmax_cuda.py::
+    pitched_histograms``: rows on 16 bytes, pad columns 0).  All
+    bins are one :func:`~event_based_bos_tpu_torch.ops.iwe_cuda.hat_vote`
+    with the scatter's floor nudge: one kernel launch on the card (float32;
+    cast to the events' dtype unless ``pitched``), its plain version on
+    the CPU (in the events' dtype).
     """
     b = spec.time_bins
-    tmin, tmax = _masked_min_max(ev.t, ev.valid)
-    frac = torch.clamp((ev.t - tmin) / torch.clamp(tmax - tmin, min=1e-30),
-                       0.0, 1.0)
-    bins = torch.clamp(torch.floor(frac * b).to(torch.int32), 0, b - 1)
-    hists = torch.stack([bilinear_vote(ev.mask_where(bins == i),
-                                       spec.image_size) for i in range(b)])
+    bins = time_bin_index(ev, b)
+    h, w = spec.image_size
+    x0, x1, y0, y1 = crop if crop is not None else (0, h, 0, w)
+    pitch = -(-(y1 - y0) // 4) * 4 if pitched else y1 - y0
+    hists = hat_vote(ev.x, ev.y, None, (x1 - x0, y1 - y0), valid=ev.valid,
+                     plane=bins, planes=b, origin=(x0, y0), pitch=pitch,
+                     nudge=True)
+    if not pitched and hists.dtype != ev.x.dtype:
+        # the card votes in float32; the stencil route and the translation
+        # fit compute in the events' dtype
+        hists = hists.to(ev.x.dtype)
     alias = {"first": 0.0, "middle": 0.5, "last": 1.0}
     ref_frac = (alias.get(spec.direction, 0.5)
                 if isinstance(spec.direction, str) else float(spec.direction))
@@ -265,15 +293,11 @@ def solve_cmax_dense(ev: Events, generator: Optional[torch.Generator],
     dev = ev.t.device
     promoted = torch.promote_types(ev.x.dtype, spec.dtype)
     if spec.time_bins > 0:
-        hists, dts = binned_histograms(ev, spec)
         crop = _roi_box(spec)
-        if crop is not None:
-            bx0, bx1, by0, by1 = crop
-            hists = hists[:, bx0:bx1, by0:by1]
-        # one copy per frame, not one per kernel call (the kernels read
-        # rows that start on 16 bytes)
-        hists = (pitched_histograms(hists) if spec.use_kernel
-                 else hists.contiguous())
+        # the box only, voted once a frame; the kernel route in the layout
+        # its kernels read (rows that start on 16 bytes)
+        hists, dts = binned_histograms(ev, spec, crop=crop,
+                                       pitched=spec.use_kernel)
         # the kernel route's IWE is float32
         blur = _blur_operators(hists.shape[-2:], torch.float32
                                if spec.use_kernel else promoted, spec, dev)

@@ -17,6 +17,7 @@ PyTorch counterpart of the JAX package's ``solver/generative.py``:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -28,7 +29,7 @@ from ..numerics import abs_
 from ..ops.gradients import poisson_to_flow
 from ..ops.image_warp import (_resize_matrix_np, warp_image_forward,
                               warp_image_stencil)
-from ..ops.iwe import gaussian_blur
+from ..ops.iwe import blur_operators, gaussian_blur
 from ..ops.iwe_cuda import bilinear_vote_cuda, signed_vote_cuda
 from ..types import Events, PatchGrid
 
@@ -96,18 +97,33 @@ class GenerativeSpec:
 # Measurement side
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=16)
+def _cached_blur_operators(shape, sigma, mode, dtype, device):
+    return blur_operators(shape, sigma, mode=mode, dtype=dtype, device=device)
+
+
+def _blur(image: torch.Tensor, sigma, mode: str) -> torch.Tensor:
+    """:func:`gaussian_blur` with its operators built once per shape, σ,
+    mode, dtype and device (a build copies them from the host): the same
+    matrices, so the same numbers."""
+    if sigma is None or float(sigma) <= 0:
+        return image
+    ops = _cached_blur_operators(tuple(image.shape[-2:]), float(sigma), mode,
+                                 image.dtype, image.device)
+    return gaussian_blur(image, sigma, mode=mode, operators=ops)
+
+
 def iwe_cache_from_votes(pol: torch.Tensor, spec: GenerativeSpec):
     """Nonlinear postprocessing of the ``[2, H, W]`` polarity votes: the
     histogram blur and the weight maps."""
     hist = pol[0] + pol[1] if spec.no_polarity else pol[0] - pol[1]
     weights = None
     if spec.weight_by_event_hist:
-        weights = gaussian_blur(torch.abs(hist), spec.weight_sigma,
-                                mode="reflect")
-    hist_s = (gaussian_blur(hist, spec.iwe_sigma, mode="reflect")
+        weights = _blur(torch.abs(hist), spec.weight_sigma, "reflect")
+    hist_s = (_blur(hist, spec.iwe_sigma, "reflect")
               if spec.iwe_sigma else hist)
     if spec.weight_by_inverse_event_hist:
-        wi = gaussian_blur(torch.abs(hist), 10.0, mode="symmetric")
+        wi = _blur(torch.abs(hist), 10.0, "symmetric")
         # population std (ddof 0), as jnp.std
         hi = torch.mean(wi) + torch.std(wi, correction=0) / 2.0
         wi = torch.minimum(torch.clamp(wi, min=0.0), hi)

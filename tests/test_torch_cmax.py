@@ -29,7 +29,7 @@ import event_based_bos_tpu.solver.cmax as jcmax
 import event_based_bos_tpu.types as jtypes
 import event_based_bos_tpu_torch.solver.cmax as tcmax
 import event_based_bos_tpu_torch.types as ttypes
-from torch_parity import CPU, np_of
+from torch_parity import CPU, np_of, rel_err
 
 H, W = 48, 64
 TDT = {"float32": torch.float32, "float64": torch.float64}
@@ -90,6 +90,47 @@ def test_binned_histograms_bit_equal_on_integer_coordinates(direction):
     assert th.shape == (16, H, W) and th.dtype == torch.float32
     assert np.array_equal(np_of(th), np_of(jh))
     assert np.array_equal(np_of(td), np_of(jd))
+
+
+@pytest.mark.parametrize("time_bins", [1, 2, 16])
+@pytest.mark.parametrize("dtype,integer", [("float32", True),
+                                           ("float32", False),
+                                           ("float64", False)])
+def test_binned_histograms_box_matches_jax_crop(time_bins, dtype, integer):
+    """The ROI box voted directly in the stencil kernels' pitched layout
+    (``crop=``, ``pitched=True``) against JAX's full histograms cropped to
+    ``_roi_box``: bit-equal on integer coordinates, ≤ 1e-5 abs in float32
+    and ≤ 1e-6 relative in float64 on fractional ones."""
+    evn = moving_edge_events(2.0, -3.0, n=4000, seed=3)
+    if integer:
+        evn[:, :2] = np.round(evn[:, :2])
+    kw = dict(image_size=(H, W), time_bins=time_bins, warp_radius=2,
+              roi=(4, 40, 10, 51))
+    jspec, tspec = _specs(dtype, True, **kw)
+    jev, tev = _both_events(evn, dtype)
+    jh, jd = jcmax.binned_histograms(jev, jspec)
+    box = jcmax._roi_box(jspec)
+    assert tcmax._roi_box(tspec) == box
+    want = np_of(jh)[:, box[0]:box[1], box[2]:box[3]]
+    got, td = tcmax.binned_histograms(tev, tspec, crop=box, pitched=True)
+    bw = box[3] - box[2]
+    pitch = -(-bw // 4) * 4
+    assert pitch > bw and got.shape == want.shape
+    assert got.dtype == TDT[dtype] and got.stride() == (
+        got.shape[1] * pitch, pitch, 1)
+    storage = got.as_strided(got.shape[:-1] + (pitch,), got.stride())
+    assert not storage[..., bw:].any(), "a pad column is not 0"
+    assert np.array_equal(np_of(td), np_of(jd))
+    if integer:
+        assert np.array_equal(np_of(got), want)
+    elif dtype == "float64":
+        assert rel_err(got, want) <= 1e-6
+    else:
+        np.testing.assert_allclose(np_of(got), want, atol=1e-5)
+    # the full frame by default, and the box is its crop
+    full, _ = tcmax.binned_histograms(tev, tspec)
+    assert full.shape == (time_bins, H, W)
+    assert torch.equal(full[:, box[0]:box[1], box[2]:box[3]], got)
 
 
 def _hists_flow(roi, dtype, seed=2):

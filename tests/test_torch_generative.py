@@ -19,6 +19,7 @@ import torch
 import event_based_bos_tpu.ops.iwe_pallas as ipk
 import event_based_bos_tpu.solver.generative as jgen
 import event_based_bos_tpu.types as jtypes
+import event_based_bos_tpu_torch.ops.iwe as tiwe
 import event_based_bos_tpu_torch.solver.generative as tgen
 import event_based_bos_tpu_torch.types as ttypes
 from torch_parity import CPU, both_events, np_of, rel_err, small_scene
@@ -69,6 +70,29 @@ def test_iwe_cache(kw, pallas):
             continue
         assert a.dtype == torch.float32 and a.shape == b.shape
         assert rel_err(a, b) <= 1e-6
+
+
+@pytest.mark.parametrize("kw", [{}, {"weight_by_event_hist": True,
+                                    "weight_sigma": 1.5}])
+def test_iwe_cache_builds_its_blur_operators_once(kw, monkeypatch):
+    """The blur operators are built once per shape, σ, mode, dtype and
+    device, and the cache is bit-identical to blurring with operators
+    built at every call."""
+    _jspec, tspec = _specs(**kw)
+    _jev, tev = _events()
+    tgen._cached_blur_operators.cache_clear()
+    got = tgen.iwe_cache(tev, tspec)
+    built = tgen._cached_blur_operators.cache_info().misses
+    assert built == 2 + bool(kw)  # iwe_sigma, 10 (and weight_sigma)
+    again = tgen.iwe_cache(tev, tspec)
+    assert tgen._cached_blur_operators.cache_info().misses == built
+    monkeypatch.setattr(tgen, "_blur", lambda image, sigma, mode:
+                        tiwe.gaussian_blur(image, sigma, mode=mode))
+    want = tgen.iwe_cache(tev, tspec)
+    for a, b, c in zip(got, again, want):
+        assert (a is None) == (b is None) == (c is None)
+        if a is not None:
+            assert torch.equal(a, b) and torch.equal(a, c)
 
 
 def test_measured_increment_with_and_without_weights_and_roi():
