@@ -1,9 +1,13 @@
 """Numerical ops: plain PyTorch, plus the wrappers of the CUDA kernels (the
-event vote and the binned CMax stencil)."""
+event vote and the binned CMax stencil), the flow metrics and the event
+filter pipeline."""
 
-from . import (cmax_cuda, events, gradients, image_warp, iwe,  # noqa: F401
-               iwe_cuda, warp)
+from . import (cmax_cuda, events, filters, flow, gradients,  # noqa: F401
+               image_warp, iwe, iwe_cuda, warp)
 from .cmax_cuda import *  # noqa: F401,F403
+from .events import *  # noqa: F401,F403
+from .filters import *  # noqa: F401,F403
+from .flow import *  # noqa: F401,F403
 from .gradients import *  # noqa: F401,F403
 from .image_warp import *  # noqa: F401,F403
 from .iwe import *  # noqa: F401,F403

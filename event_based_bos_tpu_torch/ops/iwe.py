@@ -4,7 +4,10 @@ PyTorch counterpart of the JAX package's ``ops/iwe.py``.  The vote here is
 the plain torch scatter (``index_add``), differentiable with respect to
 the coordinates and weights; the per-frame signed vote of the IWE cache
 runs on the hand-written CUDA kernel of
-:mod:`event_based_bos_tpu_torch.ops.iwe_cuda` instead.
+:mod:`event_based_bos_tpu_torch.ops.iwe_cuda` instead.  The high-level
+images (:func:`create_image_from_events`, :func:`create_iwe`,
+:func:`create_eventmask`) vote through that kernel for CUDA tensors (not
+differentiable there) and through the scatter for CPU tensors.
 
 Coordinate convention (reference parity): ``x`` is the row / height
 coordinate, ``y`` is the column / width coordinate.
@@ -20,9 +23,12 @@ import torch
 
 from ..device import resolve_device
 from ..types import Events
+from .iwe_cuda import bilinear_vote_cuda, polarity_iwe_cuda
 
-__all__ = ["gaussian_kernel1d", "blur_operators", "gaussian_blur",
-           "bilinear_vote", "create_polarity_iwe"]
+__all__ = ["gaussian_kernel1d", "blur_operators", "cached_blur_operators",
+           "gaussian_blur", "bilinear_vote", "count_image",
+           "create_image_from_events", "create_iwe", "create_polarity_iwe",
+           "create_eventmask"]
 
 _EPS = 1e-6  # floor nudge of the scatter (the reference's torch path)
 
@@ -68,6 +74,15 @@ def blur_operators(shape: Tuple[int, int], sigma: float,
     return tuple(torch.as_tensor(_blur_matrix_np(n, float(sigma), ksize,
                                                  mode))
                  .to(device=device, dtype=dtype) for n in shape)
+
+
+@functools.lru_cache(maxsize=16)
+def cached_blur_operators(shape, sigma, mode, dtype, device, ksize=None):
+    """:func:`blur_operators`, built once per shape, σ, mode, dtype, device
+    and size (a build copies from the host): the same matrices, so the
+    same numbers."""
+    return blur_operators(shape, sigma, ksize, mode=mode, dtype=dtype,
+                          device=device)
 
 
 def gaussian_blur(image: torch.Tensor, sigma: float,
@@ -138,3 +153,67 @@ def create_polarity_iwe(ev: Events, image_size: Tuple[int, int],
     pos = bilinear_vote(ev.mask_where(ev.p > 0), image_size, weight, padding)
     neg = bilinear_vote(ev.mask_where(ev.p <= 0), image_size, weight, padding)
     return torch.stack([pos, neg], dim=0)
+
+
+def count_image(ev: Events, image_size: Tuple[int, int],
+                padding: Tuple[int, int] = (0, 0)) -> torch.Tensor:
+    """Event count image: every live event adds 1 at each of its in-bounds
+    corner pixels (the reference's count, four unit votes an event)."""
+    (h, w), base, corners = _corner_data(ev, image_size, padding, 1.0)
+    flat = torch.zeros((h * w,), dtype=base.dtype, device=base.device)
+    for idx, _wgt, inb in corners:
+        flat = flat.index_add(0, idx, torch.where(inb, base, 0.0))
+    return flat.reshape(h, w)
+
+
+def create_image_from_events(ev: Events, image_size: Tuple[int, int],
+                             method: str = "bilinear_vote",
+                             weight: Union[float, torch.Tensor] = 1.0,
+                             sigma: float = 0,
+                             padding: Tuple[int, int] = (0, 0),
+                             blur_ksize: Optional[int] = None
+                             ) -> torch.Tensor:
+    """An image of the events by ``method`` (``count``, ``bilinear_vote``
+    or ``polarity``), blurred with ``sigma`` (scipy-style border).
+
+    For CUDA tensors ``bilinear_vote`` and ``polarity`` are one launch of
+    the vote kernel with the scatter's floor nudge (float32, not
+    differentiable); for CPU tensors they are the scatter.
+    """
+    cuda = ev.x.device.type == "cuda"
+    if method == "count":
+        image = count_image(ev, image_size, padding)
+    elif method == "bilinear_vote":
+        image = (bilinear_vote_cuda(ev, image_size, weight, padding,
+                                    nudge=True) if cuda
+                 else bilinear_vote(ev, image_size, weight, padding))
+    elif method == "polarity":
+        image = (polarity_iwe_cuda(ev, image_size, weight, padding,
+                                   nudge=True) if cuda
+                 else create_polarity_iwe(ev, image_size, weight, padding))
+    else:
+        raise NotImplementedError(f"method = {method!r} is not supported.")
+    if sigma and sigma > 0:
+        image = gaussian_blur(image, sigma, ksize=blur_ksize,
+                              operators=cached_blur_operators(
+                                  tuple(image.shape[-2:]), float(sigma),
+                                  "symmetric", image.dtype, image.device,
+                                  blur_ksize))
+    return image
+
+
+def create_iwe(ev: Events, image_size: Tuple[int, int],
+               method: str = "bilinear_vote", sigma: float = 1,
+               padding: Tuple[int, int] = (0, 0)) -> torch.Tensor:
+    """Image of warped events: :func:`create_image_from_events` with unit
+    weights, blurred with ``sigma``."""
+    return create_image_from_events(ev, image_size, method, 1.0, sigma,
+                                    padding)
+
+
+def create_eventmask(ev: Events, image_size: Tuple[int, int],
+                     padding: Tuple[int, int] = (0, 0)) -> torch.Tensor:
+    """``[1, H, W]`` bool mask of the pixels that receive any vote."""
+    im = create_image_from_events(ev, image_size, "bilinear_vote", 1.0, 0,
+                                  padding)
+    return (im != 0)[None]

@@ -267,10 +267,11 @@ def _event_vote(ev: Events, image_size, weight, padding, **kw):
 
 def bilinear_vote_cuda(ev: Events, image_size: Tuple[int, int],
                        weight: Union[float, torch.Tensor] = 1.0,
-                       padding: Tuple[int, int] = (0, 0)) -> torch.Tensor:
+                       padding: Tuple[int, int] = (0, 0),
+                       nudge: bool = False) -> torch.Tensor:
     """Drop-in for :func:`event_based_bos_tpu_torch.ops.iwe.bilinear_vote`
-    (not differentiable; no floor nudge)."""
-    return _event_vote(ev, image_size, weight, padding)
+    (not differentiable; the floor nudge only with ``nudge``)."""
+    return _event_vote(ev, image_size, weight, padding, nudge=nudge)
 
 
 def signed_vote_cuda(ev: Events, image_size: Tuple[int, int],
@@ -282,7 +283,9 @@ def signed_vote_cuda(ev: Events, image_size: Tuple[int, int],
 
 def polarity_iwe_cuda(ev: Events, image_size: Tuple[int, int],
                       weight: Union[float, torch.Tensor] = 1.0,
-                      padding: Tuple[int, int] = (0, 0)) -> torch.Tensor:
+                      padding: Tuple[int, int] = (0, 0),
+                      nudge: bool = False) -> torch.Tensor:
     """Stacked (positive, negative) vote images ``[2, H, W]``, in one
     launch."""
-    return _event_vote(ev, image_size, weight, padding, polarity_planes=ev.p)
+    return _event_vote(ev, image_size, weight, padding, polarity_planes=ev.p,
+                       nudge=nudge)

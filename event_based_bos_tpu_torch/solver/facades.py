@@ -1,0 +1,267 @@
+"""Concrete solver facades and the registry the CLI reads.
+
+PyTorch counterpart of the JAX package's ``solver/facades.py``: the
+pyramid facade (``patch_eklt_pyramid2``, the serving path) and the CMax
+facade (``contrast_maximization``) over the port's per-frame estimators.
+The other generative facades (``generative_max_likelihood``,
+``patch_eklt``, ``patch_eklt_dependent``) are registered and raise
+``NotImplementedError`` until ROADMAP Queue 1 #12 ports their solvers.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+
+import numpy as np
+import torch
+
+from .. import kernels
+from .api import EstimationHandle, SolverBase, fetch_later
+from .cmax import CmaxSpec, estimate_frame_cmax
+from .generative import GenerativeSpec, iwe_cache
+from .pyramid import (PyramidSpec, estimate_frame, roi_mask,
+                      update_coarse_from_fine)
+
+logger = logging.getLogger(__name__)
+
+__all__ = ["GenerativeMaximumLikelihood", "PatchEklt", "PatchEkltDependent",
+           "PatchEkltPyramid2", "ContrastMaximization", "collections"]
+
+
+def _generative_spec(orig_image_shape, solver_config, dtype
+                     ) -> GenerativeSpec:
+    """The generative model's spec from the ``generative_ml`` section and
+    the cost weights, with the JAX package's defaults."""
+    for key in ("compute_dtype", "warp_compute_bf16"):
+        if solver_config.get(key):
+            raise NotImplementedError(
+                f"{key} is not ported yet (ROADMAP Queue 1 #11)")
+    g = solver_config.get("generative_ml", {})
+    cw = solver_config.get("cost_with_weight", {"diff_norm": 1.0})
+    return GenerativeSpec(
+        warp_stencil_radius=int(solver_config.get("warp_stencil_radius", 1)),
+        image_size=tuple(orig_image_shape),
+        no_polarity=bool(g.get("no_polarity", False)),
+        iwe_sigma=float(g.get("iwe_sigma", 0) or 0),
+        weight_by_event_hist=bool(g.get("weight_loss_by_event_hist", False)),
+        weight_sigma=float(g.get("weight_sigma", 5)),
+        weight_by_inverse_event_hist=bool(
+            g.get("weight_loss_by_inverse_event_hist", False)),
+        optimize_warp=bool(g.get("optimize_warp", False)),
+        angle_model=bool(g.get("angle_model", False)),
+        poisson_model=bool(g.get("poisson_model", False)),
+        use_log_intensity=bool(g.get("use_log_intensity", False)),
+        sobel_ksize=int(g.get("sobel_ksize", 3)),
+        cost_weights=tuple(cw.items()),
+        dtype=dtype,
+    )
+
+
+def _not_ported(name: str):
+    class _NotPorted(SolverBase):
+        def __init__(self, *args, **kwargs):
+            raise NotImplementedError(
+                f"the {name} solver is not ported yet (ROADMAP Queue 1 #12); "
+                "the port has patch_eklt_pyramid2 and contrast_maximization")
+
+    _NotPorted.__name__ = _NotPorted.__qualname__ = name
+    return _NotPorted
+
+
+GenerativeMaximumLikelihood = _not_ported("GenerativeMaximumLikelihood")
+PatchEklt = _not_ported("PatchEklt")
+PatchEkltDependent = _not_ported("PatchEkltDependent")
+
+
+class PatchEkltPyramid2(SolverBase):
+    """Coarse-to-fine pyramid facade — the flagship solver.
+
+    Each frame votes the IWE cache (one launch of the vote kernel on the
+    card) as its own step, then solves; this is the JAX package's
+    ``split_iwe_cache`` arrangement, which gives the same numbers as its
+    fused one, so every mode name is accepted.  The flow's ROI box is
+    fetched and the full frame rebuilt around it on the host (the solve
+    writes exact +0.0 outside the ROI); ``handle.device_flow`` keeps the
+    full-frame unoriented flow on the device for the error pair and FWL.
+    """
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        opt = self.slv_config.get("optimizer", {})
+        pe = self.slv_config.get("patch_eklt", {})
+        self.gen = _generative_spec(self.orig_image_shape, self.slv_config,
+                                    self.dtype)
+        self.spec = PyramidSpec(
+            gen=self.gen,
+            roi=(self.crop_xmin, self.crop_xmax, self.crop_ymin,
+                 self.crop_ymax),
+            coarsest_patch=int(pe.get("coarsest_patch_size", 64)),
+            finest_patch=int(pe.get("finest_patch_size", 8)),
+            n_iter=int(opt.get("n_iter", 600)),
+            method=opt.get("method", "Adam"),
+            lr=float(opt.get("lr", 0.05)),
+            lr_decay=float(opt.get("lr_decay", 0.1)),
+            track_best=bool(self.slv_config.get("track_best", True)),
+            n_restarts=int(self.slv_config.get("n_restarts", 1)),
+        )
+        warm = bool(self.slv_config.get("warm_start"))
+        restart_mode = str(self.slv_config.get("restart_mode", "map"))
+        if restart_mode not in ("map", "vmap"):
+            raise ValueError("restart_mode must be 'map' (sequential lanes, "
+                             "~R× one solve) or 'vmap' (batched lanes), got "
+                             f"{restart_mode!r}")
+        restrict = bool(self.slv_config.get("restrict_to_roi", False))
+        roi_margin = int(self.slv_config.get("roi_margin", 2))
+        if restrict and roi_margin < 2:
+            raise ValueError(
+                "restrict_to_roi requires roi_margin >= 2 (got "
+                f"{roi_margin}): the full-frame cost equivalence needs the "
+                "ROI mask ridge and its difference stencil inside the "
+                "cropped box.")
+        if self.spec.n_restarts > 1 and warm:
+            raise ValueError("n_restarts > 1 is a cold-start feature; it "
+                             "does not compose with warm_start (all "
+                             "restarts would share the warm init).")
+        steady = self.slv_config.get("steady_n_iter")
+        if steady is not None:
+            # warm-started frames may run a shorter schedule; frame 0 keeps
+            # the full n_iter
+            steady = int(steady)
+            if not warm:
+                raise ValueError(
+                    "steady_n_iter requires warm_start: true — it shortens "
+                    "only warm-started frames; without warm starts every "
+                    "frame is cold and must run the full n_iter.")
+            if steady < 1:
+                raise ValueError(f"steady_n_iter must be >= 1, got {steady}")
+            self.spec_steady = dataclasses.replace(self.spec, n_iter=steady)
+        else:
+            self.spec_steady = None
+        sic = self.slv_config.get("split_iwe_cache", "auto")
+        if sic not in ("auto", False, "off", "scatter", "pallas"):
+            raise ValueError(
+                f"split_iwe_cache: unknown mode {sic!r} (expected 'auto', "
+                "false, 'scatter' or 'pallas')")
+        if restrict:
+            raise NotImplementedError(
+                "restrict_to_roi is not ported yet (ROADMAP Queue 1 #11)")
+        if self.spec.n_restarts > 1:
+            raise NotImplementedError(
+                "n_restarts > 1 is not ported yet (ROADMAP Queue 1 #11)")
+        self._warm_start = warm
+        self._mask = torch.as_tensor(roi_mask(self.spec), device=self.device)
+        x0, x1, y0, y1 = self.spec.roi
+        h, w = self.gen.image_size
+        self._flow_fetch_box = ((x0, x1, y0, y1)
+                                if (x1 - x0) * (y1 - y0) < h * w else None)
+
+    def prewarm(self, capacity: int) -> None:
+        """Build and load the kernels before the first frame (on the card);
+        draws nothing from the generator."""
+        if self.device.type == "cuda":
+            kernels.library()
+
+    def estimate_async(self, events, *args, **kwargs) -> EstimationHandle:
+        """Queue the IWE cache and the pyramid solve (and the warm-start
+        feedback for the next frame); the returned handle's ``result()``
+        waits for the flow's ROI box and rebuilds the full frame."""
+        ev = self._to_events(events)
+        frame = self._frame(kwargs)
+        prev = self.previous_frame_best_estimation
+        steady = self.spec_steady is not None and prev is not None
+        used_spec = self.spec_steady if steady else self.spec
+        cache = iwe_cache(ev, self.gen)
+        flow, aux = estimate_frame(None, frame, self._mask, self._generator,
+                                   used_spec, prev_params=prev, cache=cache,
+                                   device=self.device)
+        box = self._flow_fetch_box
+        fetch = fetch_later([flow if box is None
+                             else flow[:, box[0]:box[1], box[2]:box[3]]])
+        if self._warm_start:
+            self.set_previous_frame_best_estimation(
+                update_coarse_from_fine(aux["params_per_scale"], used_spec))
+
+        def finalize() -> np.ndarray:
+            self.iter_cnt += 1
+            arr = fetch()[0].numpy().astype(np.float32)
+            if box is not None:
+                # the solve writes exact +0.0 outside the ROI, so the
+                # rebuilt frame equals the full flow bit for bit
+                full = np.zeros((2,) + tuple(self.orig_image_shape),
+                                np.float32)
+                full[:, box[0]:box[1], box[2]:box[3]] = arr
+                arr = full
+            return self._orient_flow(arr)
+
+        self.dispatch_cnt += 1
+        handle = EstimationHandle(finalize)
+        handle.device_flow = flow
+        return handle
+
+
+class ContrastMaximization(SolverBase):
+    """CMax solver facade (events-only flow).
+
+    Config: the ``solver.cmax`` section's ``contrast_weights``,
+    ``smoothness`` and ``iwe_sigma``; ``motion_model``, ``warp_direction``,
+    ``optimizer`` and the ``patch_eklt`` patch sizes reuse the common keys.
+    The rest of :class:`CmaxSpec` keeps its defaults, as in the JAX package.
+    """
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        opt = self.slv_config.get("optimizer", {})
+        cm = self.slv_config.get("cmax", {})
+        pe = self.slv_config.get("patch_eklt", {})
+        cw = cm.get("contrast_weights", {"image_variance": 1.0})
+        bounds = tuple(
+            (float(v["min"]), float(v["max"]))
+            for v in opt.get("parameters", {}).values()) or ((-30, 30),) * 2
+        self.spec = CmaxSpec(
+            image_size=self.orig_image_shape,
+            roi=(self.crop_xmin, self.crop_xmax, self.crop_ymin,
+                 self.crop_ymax),
+            motion_model=self.slv_config.get("motion_model", "dense-flow"),
+            contrast_weights=tuple(cw.items()),
+            smoothness=float(cm.get("smoothness", 0.01)),
+            iwe_sigma=float(cm.get("iwe_sigma", 1.0)),
+            direction=self.slv_config.get("warp_direction", "middle"),
+            coarsest_patch=int(pe.get("coarsest_patch_size", 64)),
+            finest_patch=int(pe.get("finest_patch_size", 16)),
+            n_iter=int(opt.get("n_iter", 240)),
+            method=opt.get("method", "Adam"),
+            lr=float(opt.get("lr", 0.05)),
+            param_bounds=bounds,
+            dtype=self.dtype,
+        )
+
+    def prewarm(self, capacity: int) -> None:
+        """Build and load the kernels before the first frame (on the card);
+        draws nothing from the generator."""
+        if self.device.type == "cuda":
+            kernels.library()
+
+    def estimate_async(self, events, *args, **kwargs) -> EstimationHandle:
+        ev = self._to_events(events)
+        flow, _aux = estimate_frame_cmax(ev, None, self._generator, self.spec,
+                                         device=self.device)
+        fetch = fetch_later([flow])
+
+        def finalize() -> np.ndarray:
+            self.iter_cnt += 1
+            # the CMax flow is already the pattern displacement: the
+            # orientation convention does not apply
+            return np.ascontiguousarray(fetch()[0].numpy())
+
+        self.dispatch_cnt += 1
+        return EstimationHandle(finalize)
+
+
+collections = {
+    "generative_max_likelihood": GenerativeMaximumLikelihood,
+    "patch_eklt": PatchEklt,
+    "patch_eklt_dependent": PatchEkltDependent,
+    "patch_eklt_pyramid2": PatchEkltPyramid2,
+    "contrast_maximization": ContrastMaximization,
+}

@@ -17,7 +17,6 @@ PyTorch counterpart of the JAX package's ``solver/generative.py``:
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -29,7 +28,8 @@ from ..numerics import abs_
 from ..ops.gradients import poisson_to_flow
 from ..ops.image_warp import (_resize_matrix_np, warp_image_forward,
                               warp_image_stencil)
-from ..ops.iwe import blur_operators, gaussian_blur
+from ..ops.iwe import cached_blur_operators as _cached_blur_operators
+from ..ops.iwe import gaussian_blur
 from ..ops.iwe_cuda import bilinear_vote_cuda, signed_vote_cuda
 from ..types import Events, PatchGrid
 
@@ -96,11 +96,6 @@ class GenerativeSpec:
 # ---------------------------------------------------------------------------
 # Measurement side
 # ---------------------------------------------------------------------------
-
-@functools.lru_cache(maxsize=16)
-def _cached_blur_operators(shape, sigma, mode, dtype, device):
-    return blur_operators(shape, sigma, mode=mode, dtype=dtype, device=device)
-
 
 def _blur(image: torch.Tensor, sigma, mode: str) -> torch.Tensor:
     """:func:`gaussian_blur` with its operators built once per shape, σ,

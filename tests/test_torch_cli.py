@@ -1,0 +1,232 @@
+"""The port's serving CLI (``cli.main … --eval``) against the JAX package's.
+
+Both CLIs run a copy of ``configs/synthetic_plume.yaml`` cut to a small
+scene (64×96, float64, a few Adam steps per scale, three frames,
+``visualize: false``), written to ``tmp_path``; the port runs with
+``device="cpu"``.  Every cold frame of both starts from one numpy init (the
+``estimate_frame`` name in each package's ``solver.facades`` is wrapped;
+no file of the JAX package changes).
+
+Tolerances: the error texts hold the same frames and keys, with values
+within 1e-6 relative; ``pred_flow{i}.npy`` within 1e-6 px.  The port's
+pipelined loop equals its synchronous loop bit for bit.
+"""
+
+import ast
+import logging
+import pathlib
+
+import numpy as np
+import pytest
+import yaml
+
+import event_based_bos_tpu.cli as jcli
+import event_based_bos_tpu.solver.facades as jfacades
+import event_based_bos_tpu_torch.cli as tcli
+import event_based_bos_tpu_torch.solver.facades as tfacades
+from event_based_bos_tpu_torch.utils import read_flow_error_text
+from torch_parity import (inject_init, pyramid_init, small_config,
+                          torch_threads)
+
+TEXTS = ("flow_error_per_frame_without_mask.txt",
+         "flow_error_per_frame_with_mask.txt", "timestamps_per_frame.txt")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    with torch_threads(1):
+        yield
+
+
+@pytest.fixture(autouse=True)
+def restore_logging():
+    """``save_config`` replaces the root logger's handlers; put them
+    back."""
+    root = logging.getLogger()
+    handlers, level = root.handlers[:], root.level
+    yield
+    for h in root.handlers:
+        if h not in handlers:
+            h.close()
+    root.handlers[:] = handlers
+    root.setLevel(level)
+
+
+def _write(tmp_path, tag, cfg):
+    cfg = dict(cfg, output_dir=str(tmp_path / f"out_{tag}"))
+    path = tmp_path / f"config_{tag}.yaml"
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return ["--config_file", str(path), "--eval"], pathlib.Path(
+        cfg["output_dir"])
+
+
+def _run_port(tmp_path, tag, cfg):
+    argv, out = _write(tmp_path, tag, cfg)
+    assert tcli.main(argv, device="cpu") == 0
+    return out
+
+
+def _lines(path):
+    """``[(frame, {dict})]`` of an error text."""
+    out = []
+    for line in open(path):
+        head, payload = line.split("::", 1)
+        out.append((int(head.split()[1]), ast.literal_eval(payload)))
+    return out
+
+
+def _assert_texts_close(got_dir, want_dir, names, rtol):
+    for name in names:
+        got, want = _lines(got_dir / name), _lines(want_dir / name)
+        assert [f for f, _ in got] == [f for f, _ in want], name
+        for (_, g), (_, w) in zip(got, want):
+            assert list(g) == list(w), name
+            for k in w:
+                assert abs(g[k] - w[k]) <= rtol * abs(w[k]), (name, k, g, w)
+
+
+@pytest.mark.parametrize("data", [
+    {},
+    {"n_events_per_batch": 2500, "max_time_per_event_batch": 0.02,
+     "remove_nose": True},
+], ids=["plain", "rebalanced"])
+def test_port_cli_matches_jax_cli(tmp_path, monkeypatch, data):
+    cfg = small_config(flow_convention="physical")
+    cfg["data"].update(data)
+    cfg["evaluation"]["metrics"] = ["flow", "fwl"]
+    init = pyramid_init(cfg)
+    inject_init(monkeypatch, tfacades, init)
+    inject_init(monkeypatch, jfacades, init)
+    got = _run_port(tmp_path, "torch", cfg)
+    argv, want = _write(tmp_path, "jax", cfg)
+    assert jcli.main(argv) == 0
+    _assert_texts_close(got, want, TEXTS + ("fwl_per_frame.txt",), 1e-6)
+    assert [f for f, _ in _lines(got / TEXTS[0])] == [0, 1, 2]
+    for i in range(3):
+        g = np.load(got / f"pred_flow{i}.npy")
+        w = np.load(want / f"pred_flow{i}.npy")
+        assert g.dtype == w.dtype and g.shape == w.shape == (2, 64, 96)
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-6)
+        assert np.array_equal(np.signbit(g), np.signbit(w))
+
+
+def test_pipeline_is_bit_identical_to_sync(tmp_path):
+    """No shared init: the solver's generator draws the cold starts, in
+    frame order in both loops."""
+    cfg = small_config()
+    sync = _run_port(tmp_path, "sync", cfg)
+    piped = _run_port(tmp_path, "pipe", dict(cfg, pipeline=True))
+    for name in TEXTS[:2]:
+        assert (sync / name).read_text() == (piped / name).read_text()
+    for i in range(3):
+        a = np.load(sync / f"pred_flow{i}.npy")
+        b = np.load(piped / f"pred_flow{i}.npy")
+        assert a.tobytes() == b.tobytes()
+    # a different seed gives a different flow: the draws are used
+    other = _run_port(tmp_path, "seed", dict(cfg, solver=dict(
+        cfg["solver"], seed=5)))
+    assert not np.array_equal(np.load(other / "pred_flow0.npy"),
+                              np.load(sync / "pred_flow0.npy"))
+
+
+def test_resume_skips_computed_frames(tmp_path):
+    cfg = small_config(resume=True)
+    first = dict(cfg, evaluation=dict(cfg["evaluation"],
+                                      time_list=[[0.01, 0.15]]))
+    out = _run_port(tmp_path, "r", first)
+    assert [f for f, _ in _lines(out / TEXTS[0])] == [0, 1]
+    _run_port(tmp_path, "r", cfg)
+    # the second run appended frame 2 only
+    assert [f for f, _ in _lines(out / TEXTS[0])] == [0, 1, 2]
+    log = (out / "main.log").read_text()
+    assert "Frame 0 already computed" in log
+    assert "Frame 1 already computed" in log
+    assert sorted(p.name for p in out.glob("flow_*.npy")) == [
+        "flow_000000.npy", "flow_000001.npy", "flow_000002.npy"]
+
+
+def test_profile_logs_the_section_report(tmp_path):
+    out = _run_port(tmp_path, "p", small_config(profile=True))
+    log = (out / "main.log").read_text()
+    assert "Per-section host timings" in log
+    assert "Steady-state sections (frames 3+, n=1" in log
+    for section in ("prepare:", "preprocess:", "estimate:", "finalize:",
+                    "finalize/errors:", "finalize/solve_wait:"):
+        assert section in log
+
+
+def test_contrast_maximization_cli_writes_parsable_texts(tmp_path):
+    cfg = small_config("synthetic_cmax")
+    cfg["evaluation"]["time_list"] = [[0.01, 0.15]]
+    out = _run_port(tmp_path, "cmax", cfg)
+    for name in TEXTS[:2]:
+        arrays, stats = read_flow_error_text(str(out / name))
+        assert stats["EPE"]["n_data"] == 2
+        assert np.isfinite(arrays["EPE"]).all()
+    flows = [np.load(out / f"pred_flow{i}.npy") for i in range(2)]
+    assert all(f.shape == (2, 64, 96) and np.isfinite(f).all()
+               for f in flows)
+
+
+@pytest.mark.parametrize("top,argv_eval,match", [
+    ({"mesh": {"data": 1, "event": 1}}, True, "#15"),
+    ({"visualize": True}, True, "#10b"),
+    ({"estimation_method": "openpiv"}, True, "#10b"),
+    ({}, False, "#10b"),
+    ({"method": "opencv_flow_two_steps"}, True, "#10b"),
+    ({"method": "openpiv"}, True, "#14"),
+])
+def test_options_not_ported_raise(tmp_path, top, argv_eval, match):
+    argv, _out = _write(tmp_path, "x", small_config(**top))
+    if not argv_eval:
+        argv = argv[:-1]
+    with pytest.raises(NotImplementedError, match=match):
+        tcli.main(argv, device="cpu")
+
+
+def test_main_defaults_to_the_gpu(tmp_path):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    argv, _out = _write(tmp_path, "g", small_config())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcli.main(argv)
+
+
+def test_frame_result_store_matches_jax(tmp_path):
+    from event_based_bos_tpu.utils.checkpoint import FrameResultStore as J
+    from event_based_bos_tpu_torch.utils.checkpoint import (
+        FrameResultStore as T)
+
+    rng = np.random.default_rng(0)
+    stores = T(str(tmp_path / "t")), J(str(tmp_path / "j"))
+    for i in range(3):
+        flow = rng.normal(size=(2, 4, 5)).astype(np.float32)
+        epe = float(rng.uniform())
+        for s in stores:
+            s.record(i, flow=flow, t1=0.1 * i, t2=0.1 * i + 0.05, EPE=epe,
+                     AE=0.5)
+    # the same manifest on disk, read back by a new store (a resume)
+    t, j = T(str(tmp_path / "t")), J(str(tmp_path / "j"))
+    assert len(t) == 3 and 2 in t and 3 not in t
+    assert t.get(1) == j.get(1)
+    assert t.summary() == j.summary()
+    assert np.array_equal(t.load_flow(2), j.load_flow(2))
+    assert t.load_flow(7) is None
+
+
+def test_fix_random_seed_seeds_numpy_and_torch():
+    import random
+
+    import torch
+
+    from event_based_bos_tpu_torch.utils import fix_random_seed
+
+    draws = []
+    for _ in range(2):
+        fix_random_seed(11)
+        draws.append((np.random.rand(), random.random(),
+                      float(torch.rand(()))))
+    assert draws[0] == draws[1]

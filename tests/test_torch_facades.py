@@ -1,0 +1,310 @@
+"""The solver facades of the port against the JAX package's.
+
+Both facades are built from the same YAML config (``synthetic_plume`` and
+``synthetic_cmax`` cut to 64×96, float64) and fed the same events, window
+by window, from the synthetic loader.  Random streams differ between the
+frameworks, so every cold pyramid frame starts from one numpy
+``init_params``: the ``estimate_frame`` name in each package's
+``solver.facades`` is wrapped to pass it (no file of the JAX package
+changes).
+
+Tolerances: the pyramid and CMax flows within 1e-6 px (float64 solves,
+float32 fetch), with the signs of the zeros outside the ROI equal; the
+error pair within 1e-6 relative (float32 metrics).
+"""
+
+import copy
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import event_based_bos_tpu.solver.facades as jfacades
+import event_based_bos_tpu.utils.config as jconfig
+import event_based_bos_tpu_torch.solver.facades as tfacades
+from event_based_bos_tpu_torch import data as tdata
+from event_based_bos_tpu_torch.solver import api as tapi
+from event_based_bos_tpu_torch.utils.config import propagate_config
+from torch_parity import (CPU, SMALL_ROI, inject_init, pyramid_init,
+                          small_config, torch_threads)
+
+H, W = 64, 96
+ROI_BOX = (SMALL_ROI["xmin"], SMALL_ROI["xmax"], SMALL_ROI["ymin"],
+           SMALL_ROI["ymax"])
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    with torch_threads(1):
+        yield
+
+
+def _config(name="synthetic_plume", **solver):
+    cfg = small_config(name)
+    cfg["solver"].update(solver)
+    propagate_config(cfg)
+    want = small_config(name)
+    want["solver"].update(solver)
+    jconfig.propagate_config(want)
+    assert cfg == want  # the port's propagation is the JAX package's
+    return cfg
+
+
+def _build(cfg, package):
+    d = cfg["data"]
+    args = ((d["height"], d["width"]), (d["crop_height"], d["crop_width"]))
+    kw = dict(solver_config=copy.deepcopy(cfg["solver"]),
+              visualize_module=None)
+    if package == "torch":
+        return tfacades.collections[cfg["solver"]["method"]](
+            *args, device=CPU, **kw)
+    return jfacades.collections[cfg["solver"]["method"]](*args, **kw)
+
+
+def _windows(cfg, n_frames=3):
+    """``(events (n, 4), frame)`` of the first frames of ``time_list``."""
+    loader = tdata.collections["SYNTHETIC"](config=cfg["data"])
+    loader.set_sequence(cfg["data"]["sequence"])
+    out = []
+    for i1 in range(1, 1 + n_frames):
+        im1, t1 = loader.load_image(i1)
+        _im2, t2 = loader.load_image(i1 + 1)
+        ev = loader.load_event(max(loader.time_to_index(t1), 0),
+                               min(loader.time_to_index(t2), len(loader)))
+        out.append((ev, im1))
+    return out
+
+
+def _solve(solv, windows):
+    flows = []
+    for ev, frame in windows:
+        filtered, _period = solv.preprocess(ev)
+        flows.append(solv.estimate(filtered, frame=frame))
+    return flows
+
+
+def _outside():
+    out = np.ones((H, W), bool)
+    out[ROI_BOX[0]:ROI_BOX[1], ROI_BOX[2]:ROI_BOX[3]] = False
+    return out
+
+
+@pytest.mark.parametrize("convention", ["reference", "physical"])
+def test_pyramid_facade_matches_jax(monkeypatch, convention):
+    cfg = _config(flow_convention=convention)
+    init = pyramid_init(cfg)
+    inject_init(monkeypatch, tfacades, init)
+    inject_init(monkeypatch, jfacades, init)
+    windows = _windows(cfg, 1)
+    (tflow,) = _solve(_build(cfg, "torch"), windows)
+    (jflow,) = _solve(_build(cfg, "jax"), windows)
+    assert tflow.dtype == np.float32 and tflow.shape == (2, H, W)
+    np.testing.assert_allclose(tflow, jflow, rtol=0, atol=1e-6)
+    assert np.array_equal(np.signbit(tflow), np.signbit(jflow))
+    outside = _outside()
+    assert (tflow[:, outside] == 0).all()
+    # the solve writes +0.0 outside the ROI; physical negates it
+    assert np.signbit(tflow[:, outside]).all() == (convention == "physical")
+    assert np.abs(tflow[:, ~outside]).max() > 0
+
+
+def test_pyramid_facade_warm_start_matches_jax(monkeypatch):
+    """``warm_start`` with ``steady_n_iter`` over three frames: frame 0 cold
+    from the shared init, frames 1 and 2 warm on the shortened schedule."""
+    cfg = _config(warm_start=True, steady_n_iter=6)
+    init = pyramid_init(cfg)
+    inject_init(monkeypatch, tfacades, init)
+    inject_init(monkeypatch, jfacades, init)
+    windows = _windows(cfg, 3)
+    tsolv = _build(cfg, "torch")
+    tflows = _solve(tsolv, windows)
+    jflows = _solve(_build(cfg, "jax"), windows)
+    for t, j in zip(tflows, jflows):
+        np.testing.assert_allclose(t, j, rtol=0, atol=1e-6)
+    assert tsolv.spec_steady.n_iter == 6
+    assert tsolv.previous_frame_best_estimation is not None
+    # warm frames start elsewhere than a cold frame on the same window
+    cold = _solve(_build(cfg, "torch"), windows[1:2])[0]
+    assert not np.array_equal(cold, tflows[1])
+
+
+def _moving_dots(vx, vy, n=6000, seed=0):
+    """A rigidly translating dot pattern over one window (``(n, 4)``
+    events), whose contrast peaks away from flow 0."""
+    rng = np.random.default_rng(seed)
+    t = np.sort(rng.uniform(0, 1, n))
+    x = rng.choice(np.arange(6, H - 14, 4), n) + vx * t + rng.normal(0, .1, n)
+    y = rng.choice(np.arange(6, W - 14, 5), n) + vy * t + rng.normal(0, .1, n)
+    return np.stack([x, y, t, np.ones(n)], 1)
+
+
+def test_cmax_facade_matches_jax_on_the_stencil_route():
+    """The dense CMax solve starts from flow 0 (no init to share), here on
+    a translating dot pattern.  On the CPU the JAX facade takes the stencil
+    sum; the port is put on its stencil route (``use_kernel=False``) to
+    match."""
+    cfg = _config("synthetic_cmax")
+    windows = [(_moving_dots(2.0, -3.0), np.zeros((H, W)))]
+    tsolv = _build(cfg, "torch")
+    assert tsolv.spec.use_kernel
+    tsolv.spec = dataclasses.replace(tsolv.spec, use_kernel=False)
+    (tflow,) = _solve(tsolv, windows)
+    (jflow,) = _solve(_build(cfg, "jax"), windows)
+    assert tflow.shape == (2, H, W) and np.isfinite(tflow).all()
+    np.testing.assert_allclose(tflow, jflow, rtol=0, atol=1e-6)
+    assert np.abs(tflow).max() > 0
+
+
+@pytest.mark.parametrize("convention", ["reference", "physical"])
+def test_flow_errors_match_jax_and_the_device_pair(monkeypatch, convention):
+    """``calculate_flow_errors`` equals the JAX facade's; the pair queued
+    behind the solve from its device flow equals it bit for bit."""
+    cfg = _config(flow_convention=convention)
+    inject_init(monkeypatch, tfacades, pyramid_init(cfg))
+    ((ev, frame),) = _windows(cfg, 1)
+    tsolv, jsolv = _build(cfg, "torch"), _build(cfg, "jax")
+    filtered, _ = tsolv.preprocess(ev)
+    handle = tsolv.estimate_async(filtered, frame=frame)
+    flow = handle.result()
+    sign = -1.0 if convention == "physical" else 1.0
+    assert torch.equal(handle.device_flow.to(torch.float32) * sign,
+                       torch.as_tensor(flow))
+    gt = np.random.default_rng(0).normal(0, 1, (2, H, W)).astype(np.float32)
+    x0, x1, y0, y1 = ROI_BOX
+    est_c, gt_c = flow[:, x0:x1, y0:y1], gt[:, x0:x1, y0:y1]
+    got = tsolv.calculate_flow_errors(est_c, gt_c, ev, SMALL_ROI)
+    want = jsolv.calculate_flow_errors(est_c, gt_c, ev, SMALL_ROI)
+    for g, w in zip(got, want):
+        assert list(g) == list(w)  # the same keys, in the same order
+        assert all(isinstance(v, float) for v in g.values())
+        for k in w:
+            assert abs(g[k] - w[k]) <= 1e-6 * abs(w[k]), (k, g[k], w[k])
+    assert got[0] != got[1]
+    device_pair = tsolv.flow_errors_async(filtered, gt, handle.device_flow,
+                                          ROI_BOX)()
+    assert device_pair == got
+    single = tsolv.calculate_flow_error(est_c, gt_c, events=ev,
+                                        roi=SMALL_ROI)
+    assert single == got[1]
+
+
+def test_fwl_async_equals_host_fwl(monkeypatch):
+    cfg = _config(flow_convention="physical")
+    inject_init(monkeypatch, tfacades, pyramid_init(cfg))
+    ((ev, frame),) = _windows(cfg, 1)
+    tsolv = _build(cfg, "torch")
+    filtered, _ = tsolv.preprocess(ev)
+    handle = tsolv.estimate_async(filtered, frame=frame)
+    flow = handle.result()
+    got = tsolv.calculate_fwl_async(filtered, handle.device_flow, 2.0)()
+    want = tsolv.calculate_fwl(flow * np.float32(2.0), filtered)
+    assert set(got) == {"FWL"} and isinstance(got["FWL"], float)
+    assert got == want
+
+
+def test_prewarm_draws_nothing_and_generator_is_seeded(monkeypatch):
+    cfg = _config()
+    windows = _windows(cfg, 1)
+    a, b = _build(cfg, "torch"), _build(cfg, "torch")
+    before = a._generator.get_state()
+    a.prewarm(4096)
+    assert torch.equal(a._generator.get_state(), before)
+    assert np.array_equal(_solve(a, windows)[0], _solve(b, windows)[0])
+
+
+def test_solver_texts_are_parsable(tmp_path):
+    from event_based_bos_tpu_torch.utils import read_flow_error_text
+
+    solv = _build(_config(), "torch")
+    solv.output_dir = str(tmp_path)
+    for i in range(3):
+        solv.save_flow_error_as_text(i, {"EPE": 0.5 + i, "AE": 0.0})
+        solv.save_flow_error_as_text(i, {"t1": 0.1, "t2": 0.2},
+                                     "timestamps_per_frame.txt")
+    assert solv.evaluation_text_list == [
+        str(tmp_path / "flow_error_per_frame.txt")]
+    arrays, stats = read_flow_error_text(solv.evaluation_text_list[0])
+    assert list(arrays["EPE"]) == [0.5, 1.5, 2.5]
+    assert stats["EPE"]["n_data"] == 3
+
+
+@pytest.mark.parametrize("overrides,exc,match", [
+    ({"restart_mode": "pmap"}, ValueError, "restart_mode"),
+    ({"restrict_to_roi": True, "roi_margin": 1}, ValueError, "roi_margin"),
+    ({"restrict_to_roi": True}, NotImplementedError, "#11"),
+    ({"n_restarts": 4, "warm_start": True}, ValueError, "warm_start"),
+    ({"n_restarts": 4}, NotImplementedError, "#11"),
+    ({"steady_n_iter": 5}, ValueError, "warm_start"),
+    ({"steady_n_iter": 0, "warm_start": True}, ValueError, ">= 1"),
+    ({"split_iwe_cache": "fused"}, ValueError, "split_iwe_cache"),
+    ({"quantized_upload": True}, NotImplementedError, "#16"),
+    ({"quantized_upload": "exact"}, NotImplementedError, "#16"),
+    ({"quantized_upload": "round"}, NotImplementedError, "#16"),
+    ({"quantized_upload": "lossy"}, ValueError, "quantized_upload"),
+    ({"flow_fetch_dtype": "float16"}, NotImplementedError, "#16"),
+    ({"flow_fetch_dtype": "bfloat16"}, NotImplementedError, "#16"),
+    ({"flow_fetch_dtype": "int8"}, ValueError, "flow_fetch_dtype"),
+    ({"compute_dtype": "bfloat16"}, NotImplementedError, "#11"),
+    ({"generative_ml": {"model_image": "e2vid"}}, NotImplementedError,
+     "#14"),
+    ({"method": "generative_max_likelihood"}, NotImplementedError, "#12"),
+    ({"method": "patch_eklt"}, NotImplementedError, "#12"),
+    ({"method": "patch_eklt_dependent"}, NotImplementedError, "#12"),
+])
+def test_options_not_ported_or_invalid_raise(overrides, exc, match):
+    cfg = _config()
+    cfg["solver"].update(overrides)
+    with pytest.raises(exc, match=match):
+        _build(cfg, "torch")
+
+
+@pytest.mark.parametrize("mode", ["auto", False, "off", "scatter",
+                                  "pallas"])
+def test_split_iwe_cache_modes_are_accepted(mode):
+    assert _build(_config(split_iwe_cache=mode), "torch").spec.n_iter == 12
+
+
+@pytest.mark.parametrize("dataset", ["CCS", "E2VID", "HELIUM"])
+def test_recorded_dataset_loaders_are_not_ported_yet(dataset):
+    with pytest.raises(NotImplementedError, match="#14"):
+        tdata.collections[dataset](config={"height": H, "width": W})
+
+
+def test_model_frame_modes():
+    solv = _build(_config(), "torch")
+    frame = np.arange(H * W, dtype=float).reshape(H, W)
+    bg = np.ones((H, W))
+    assert solv._model_frame({"frame": frame}) is not None
+    for mode, want in (("current", frame), ("black", np.zeros((H, W))),
+                       ("background", bg)):
+        solv.slv_config["generative_ml"]["model_image"] = mode
+        got = solv._model_frame({"frame": frame, "background": bg})
+        assert np.array_equal(got, want)
+    solv.slv_config["generative_ml"]["model_image"] = "sketch"
+    with pytest.raises(ValueError):
+        solv._model_frame({"frame": frame})
+
+
+def test_visualize_methods_need_no_visualizer():
+    solv = _build(_config(), "torch")
+    names = ["visualize_original_sequential", "visualize_pred_sequential",
+             "visualize_gt_sequential", "visualize_flows",
+             "visualize_one_batch_warp", "visualize_one_batch_warp_gt"]
+    for name in names:
+        assert getattr(solv, name)(None, None) is None
+    solv.visualizer = object()
+    for name in names:
+        with pytest.raises(NotImplementedError, match="#10b"):
+            getattr(solv, name)(None, None)
+
+
+def test_entry_points_default_to_the_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    cfg = _config()
+    d = cfg["data"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tapi.collections["patch_eklt_pyramid2"](
+            (d["height"], d["width"]), (d["crop_height"], d["crop_width"]),
+            solver_config=cfg["solver"])

@@ -1,11 +1,12 @@
 """The port stands alone: no JAX, no module of the JAX package, and no
 silent fallback to the CPU.
 
-The port must run on a GPU machine that has no JAX installed, so every
-module of ``event_based_bos_tpu_torch``, ``chip_smoke.py`` and
-the GPU tools (``tools/torch_solve_probe.py``, ``tools/stencil_ab.py``) is
-imported in a subprocess where
-``import jax`` fails.  Entry points called without
+The port must run on a GPU machine that has no JAX installed, and may lack
+OpenCV, PyYAML, PIL and matplotlib, so every module of
+``event_based_bos_tpu_torch``, ``chip_smoke.py`` and the GPU tools
+(``tools/torch_solve_probe.py``, ``tools/stencil_ab.py``) is imported in a
+subprocess where ``import jax`` fails, and so do ``import cv2``, ``import
+yaml``, ``import PIL`` and ``import matplotlib``.  Entry points called without
 ``device=`` must raise here (no GPU) rather than run on the CPU.
 """
 
@@ -37,6 +38,8 @@ def test_port_and_chip_smoke_import_without_jax():
         "sys.modules['jax'] = None\n"
         "sys.modules['optax'] = None\n"
         "sys.modules['event_based_bos_tpu'] = None\n"
+        "for m in ('cv2', 'yaml', 'PIL', 'matplotlib'):\n"
+        "    sys.modules[m] = None\n"
         "import importlib\n"
         "sys.path.insert(0, 'tools')\n"
         f"for m in {_port_modules()!r} + ['chip_smoke', 'torch_solve_probe',"

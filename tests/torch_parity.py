@@ -4,6 +4,7 @@ Every input is made with numpy from a fixed seed and handed to both the
 JAX package and the port, so the two see identical numbers.
 """
 
+import contextlib
 import functools
 
 import numpy as np
@@ -62,3 +63,76 @@ def small_scene(h=64, w=96, n=2000, seed=0):
 def rel_err(a, b):
     a, b = np_of(a), np_of(b)
     return float(np.max(np.abs(a - b)) / (np.max(np.abs(b)) + 1e-30))
+
+
+SMALL_ROI = {"xmin": 0, "xmax": 64, "ymin": 16, "ymax": 80}
+
+
+def small_config(name="synthetic_plume", output_dir=None, **top):
+    """A shipped YAML config cut to a small scene (64×96, a few Adam steps
+    per scale, float64, ``visualize: false``, frames 0–2 of
+    ``time_list``), as a dict not yet propagated; ``top`` overrides
+    top-level keys."""
+    import pathlib
+
+    import yaml
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "configs"
+    with open(path / f"{name}.yaml") as f:
+        cfg = yaml.safe_load(f)
+    cfg["data"].update(height=64, width=96, duration=0.2, fps=30,
+                       events_per_frame=3000)
+    cfg["common_params"].update(SMALL_ROI)
+    cfg["evaluation"]["time_list"] = [[0.01, 0.18]]
+    solver = cfg["solver"]
+    solver["precision"] = "64"
+    if name == "synthetic_cmax":
+        solver["optimizer"]["n_iter"] = 30
+    else:
+        solver["optimizer"]["n_iter"] = 12
+        solver["patch_eklt"].update(coarsest_patch_size=16,
+                                    finest_patch_size=8)
+    cfg["visualize"] = False
+    if output_dir is not None:
+        cfg["output_dir"] = str(output_dir)
+    cfg.update(top)
+    return cfg
+
+
+def pyramid_init(cfg, seed=7):
+    """A numpy init of the coarsest pyramid scale for ``cfg`` (three
+    parameter planes; the first drawn uniformly in [-1, 1))."""
+    pe = cfg["solver"]["patch_eklt"]
+    h, w = cfg["data"]["height"], cfg["data"]["width"]
+    p = pe["coarsest_patch_size"]
+    init = np.zeros((3, h // p, w // p))
+    init[0] = np.random.default_rng(seed).uniform(-1, 1, init.shape[1:])
+    return init
+
+
+def inject_init(monkeypatch, facades_module, init):
+    """Make ``facades_module``'s solves start from ``init`` on every cold
+    frame: its ``estimate_frame`` name is wrapped to pass ``init_params``
+    (a warm-started frame keeps its previous-frame start)."""
+    orig = facades_module.estimate_frame
+
+    def estimate_frame(*args, **kwargs):
+        if kwargs.get("prev_params") is None:
+            kwargs["init_params"] = init
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(facades_module, "estimate_frame", estimate_frame)
+
+
+@contextlib.contextmanager
+def torch_threads(n):
+    """Run the block with ``n`` torch intra-op threads.  The solves of the
+    facade and CLI tests are many small ops; under the suite's parallel
+    workers, threads of each waiting on the others' cores cost far more
+    than they save."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
