@@ -78,7 +78,29 @@ failure:
    stencil kernel a frame, one vote for the event mask), and, where
    ``cv2`` is installed, one pyramid frame with the default Farnebäck GT.
    Prints ms/frame (host wall clock) and the ``profile`` section shares of
-   each path.
+   each path;
+7. the visualizing loop at full width (``visualize: true``, the default of
+   every shipped config): phase 6's config and frames with a
+   ``Visualizer(async_writes=True, device="cuda")``, then the post-loop
+   flush and video assembly (``cli.write_videos``).  Every per-frame PNG
+   decodes at 720×1280, the mp4s exist (with their frame counts) exactly
+   where cv2 has a codec, the loss plots exactly where matplotlib is
+   installed (else its one warning), the three ``pred_flow{i}.npy`` equal
+   phase 6's bit for bit, the bundle's clipped IWE and event mask equal
+   the plain vote bit for bit, and the vote launches a frame are exactly
+   the IWE cache's, the bundle's clipped IWE's and the bundle's mask's
+   (one each).  Prints ms/frame, the steady frame's ``finalize/visualize``
+   and ``finalize/solve_wait`` shares, and the device time of the render
+   bundle and of one Poisson view.  Then one CMax frame (3 votes, 260
+   launches of each stencil kernel), ``run_mode: accumulate`` and the
+   sequential mode over two 10 ms windows (2 and 1 votes a window), and
+   one frame with the two-step Farnebäck GT (its Poisson views on the
+   card);
+8. golden parity at full width: the port's ``estimate_frame`` in float64
+   at 40 iterations from the pinned init on the scene of
+   ``tests/goldens/pyramid_720x1280_ref_flow.npy`` (the original
+   reference's flow), over the ROI: MSE < 2e-2 and correlation > 0.95,
+   printed beside the JAX package's measured 9.9e-3 / 0.972.
 
 Prints a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
@@ -1128,12 +1150,15 @@ class CallerLaunches:
             setattr(module, attr, fn)
 
 
-def drive_serving(config, loader, device, gt_estimator):
+def drive_serving(config, loader, device, gt_estimator, viz=None,
+                  callers=None):
     """``cli.evaluate_per_frames`` on a solver built as ``cli.main`` builds
-    it, with the launch counts set to 0 just before and read just after,
-    the event mask's and the IWE cache's launches counted per caller, and
-    the first frame's facade inputs and device flow recorded.  Returns
-    ``(solver, launches, caller launches, records, ms/frame, log lines)``."""
+    it (with the Visualizer ``viz``, or serving), with the launch counts
+    set to 0 just before and read just after, the vote launches counted per
+    caller (``callers``: ``name -> (module, attribute)``, by default the
+    IWE cache and the event mask), and the first frame's facade inputs and
+    device flow recorded.  Returns ``(solver, launches, caller launches,
+    records, ms/frame, log lines)``."""
     import logging
     import shutil
 
@@ -1142,13 +1167,14 @@ def drive_serving(config, loader, device, gt_estimator):
     from event_based_bos_tpu_torch import cli, kernels, solver
     from event_based_bos_tpu_torch.solver import facades, programs
 
-    shutil.rmtree(config["output_dir"], ignore_errors=True)
-    os.makedirs(config["output_dir"])
+    if viz is None:
+        shutil.rmtree(config["output_dir"], ignore_errors=True)
+        os.makedirs(config["output_dir"])
     d = config["data"]
     solv = solver.collections[config["solver"]["method"]](
         (d["height"], d["width"]), (d["crop_height"], d["crop_width"]),
         calibration_parameter=loader.load_calib(),
-        solver_config=config["solver"], visualize_module=None,
+        solver_config=config["solver"], visualize_module=viz,
         device=device)
     solv.output_dir = config["output_dir"]
     first = {}
@@ -1170,13 +1196,14 @@ def drive_serving(config, loader, device, gt_estimator):
     log = logging.getLogger(cli.__name__)
     log.addHandler(handler)
     log.setLevel(logging.INFO)
-    callers = CallerLaunches({"iwe_cache": (facades, "iwe_cache"),
-                              "eventmask": (programs, "eventmask")})
+    callers = CallerLaunches(callers or {
+        "iwe_cache": (facades, "iwe_cache"),
+        "eventmask": (programs, "eventmask")})
     try:
         torch.cuda.synchronize()
         kernels.reset_launches()
         t0 = time.perf_counter()
-        cli.evaluate_per_frames(config, loader, solv, None, device=device,
+        cli.evaluate_per_frames(config, loader, solv, viz, device=device,
                                 gt_estimator=gt_estimator)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1370,7 +1397,337 @@ def run_serving(device):
         results["farneback"] = dict(ms_per_frame=ms, epe=epe)
         kernels.reset_launches()
     print(json.dumps({"serving": results}))
-    return results, mask_err
+    return results, mask_err, loader, gt
+
+
+VIZ_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "build", "chip_smoke_visualize")
+FRAME_PNGS = ("original", "original_filter", "pred_flow", "pred_flow_poisson",
+              "pred_masked", "gt_flow", "gt_flow_poisson", "gt_masked",
+              "flow_comparison_pred", "flow_comparison_gt")
+PREFIX_VIDEOS = ("original", "original_filter", "pred_flow",
+                 "pred_flow_poisson", "pred_masked", "gt_flow",
+                 "gt_flow_poisson", "gt_masked")
+COMPARISON_VIDEOS = ("flow_comparison", "flow_comparison_masked",
+                     "video_filter_effect")
+
+
+def visualize_config(name, solver="patch_eklt_pyramid2",
+                     time_list=((0.01, 0.18),), **top):
+    """Phase 6's config with ``visualize: true``, its own output directory
+    under ``VIZ_DIR`` and the top-level keys ``top``."""
+    config = serving_config(name, method=solver, time_list=time_list)
+    config.update(visualize=True, output_dir=os.path.join(VIZ_DIR, name),
+                  **top)
+    return config
+
+
+def new_visualizer(config, device):
+    """The Visualizer ``cli.main`` builds, in a fresh output directory."""
+    import shutil
+
+    from event_based_bos_tpu_torch.visualizer import Visualizer
+
+    shutil.rmtree(config["output_dir"], ignore_errors=True)
+    return Visualizer((H, W), save=True, show=False,
+                      save_dir=config["output_dir"], async_writes=True,
+                      device=device)
+
+
+def check_pngs(out, names):
+    """Every PNG in ``names`` exists and decodes at H×W."""
+    import cv2
+
+    for name in names:
+        img = cv2.imread(os.path.join(out, name), cv2.IMREAD_UNCHANGED)
+        assert img is not None, f"{name} missing or unreadable"
+        assert img.shape[:2] == (H, W), (name, img.shape)
+
+
+def check_videos(out, prefixes, n_frames):
+    """``{prefix: frames}`` of the mp4s written (an mp4 exists only where
+    cv2 has a codec); each written one decodes at H×W (the comparison
+    videos wider) with ``n_frames`` frames."""
+    import cv2
+
+    written = {}
+    for prefix in prefixes:
+        path = os.path.join(out, f"{prefix}.mp4")
+        if not os.path.exists(path):
+            continue
+        cap = cv2.VideoCapture(path)
+        n = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+        ok, frame = cap.read()
+        cap.release()
+        assert ok and frame.shape[0] == H and frame.shape[1] % W == 0, prefix
+        assert n == n_frames, (prefix, n, n_frames)
+        written[prefix] = n
+    return written
+
+
+def codec_available():
+    import cv2
+
+    path = os.path.join(VIZ_DIR, "codec_probe.mp4")
+    os.makedirs(VIZ_DIR, exist_ok=True)
+    w = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 20.0, (64, 64))
+    ok = w.isOpened()
+    w.release()
+    if os.path.exists(path):
+        os.remove(path)
+    return ok
+
+
+def plain_clipped_and_mask(ev, max_scale):
+    """The bundle's clipped IWE and event mask from the plain vote."""
+    import torch
+
+    from event_based_bos_tpu_torch.ops import iwe_cuda
+
+    vote = iwe_cuda.hat_vote_plain(ev.x.to(torch.float32),
+                                   ev.y.to(torch.float32), None, (H, W),
+                                   valid=ev.valid, nudge=True)
+    clipped = 255 - torch.clamp(max_scale * vote, 0, 255).to(torch.uint8)
+    return clipped, (vote != 0)[None]
+
+
+def run_visualize(device, loader, gt):
+    """Phase 7: the visualizing loop at full width (the default of every
+    shipped config), then the run modes without ``--eval`` and the
+    two-step GT."""
+    import importlib.util
+    import logging
+
+    import numpy as np
+    import torch
+
+    from event_based_bos_tpu_torch import cli, kernels
+    from event_based_bos_tpu_torch.ops.poisson import poisson_view
+    from event_based_bos_tpu_torch.solver import cmax, facades, programs
+
+    codec = codec_available()
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    print(f"visualize: mp4 codec {codec}, matplotlib {have_mpl}")
+    viz_log = []
+    handler = logging.Handler()
+    handler.emit = lambda record: viz_log.append(record.getMessage())
+    logging.getLogger("event_based_bos_tpu_torch.visualizer").addHandler(
+        handler)
+    results = {}
+    bundle_callers = {"bundle_clipped": (programs, "clipped_iwe"),
+                      "bundle_mask": (programs, "eventmask"),
+                      "render_bundle": (programs, "render_bundle")}
+
+    # the pyramid: phase 6's config and frames, visualizing
+    config = visualize_config("pyramid")
+    viz = new_visualizer(config, device)
+    solv, launches, callers, first, ms, lines = drive_serving(
+        config, loader, device, gt, viz=viz,
+        callers={"iwe_cache": (facades, "iwe_cache"), **bundle_callers})
+    n = solv.iter_cnt
+    t0 = time.perf_counter()
+    cli.write_videos(viz, solv)
+    videos_s = time.perf_counter() - t0
+    out = config["output_dir"]
+    per_caller = callers.launches()
+    bundle_votes = per_caller.pop("render_bundle")
+    head, shares = section_shares(lines, n)
+    assert n == 3, f"{n} frames, expected 3"
+    assert per_caller == {"iwe_cache": n, "bundle_clipped": n,
+                          "bundle_mask": n}, per_caller
+    assert bundle_votes == 2 * n and launches["hat_vote_image"] == 3 * n, \
+        (bundle_votes, launches)
+    check_pngs(out, [f"{p}{i}.png" for p in FRAME_PNGS for i in range(n)])
+    videos = check_videos(out, PREFIX_VIDEOS, n)
+    videos.update(check_videos(out, COMPARISON_VIDEOS, n))
+    assert bool(videos) == codec, (videos, codec)
+    if codec:
+        assert set(videos) == set(PREFIX_VIDEOS + COMPARISON_VIDEOS), videos
+    plots = sorted(f for f in os.listdir(out)
+                   if f.startswith("optimization_steps"))
+    assert len(plots) == (n if have_mpl else 0), plots
+    same = []
+    for i in range(n):
+        a = np.load(os.path.join(out, f"pred_flow{i}.npy"))
+        b = np.load(os.path.join(SERVE_DIR, "pyramid", f"pred_flow{i}.npy"))
+        same.append(a.dtype == b.dtype and a.tobytes() == b.tobytes())
+    # the bundle's votes against the plain vote, at the loop's arguments
+    (ev, _shape, max_scale), _kw, clipped, _l = callers.calls[
+        "bundle_clipped"][0]
+    plain_clipped, plain_mask = plain_clipped_and_mask(ev, max_scale)
+    mask = callers.calls["bundle_mask"][0][2]
+    bundle_exact = (torch.equal(clipped, plain_clipped)
+                    and torch.equal(mask, plain_mask))
+    # the bundle's and the Poisson views' device time on frame 0's inputs
+    b_args, b_kw = callers.calls["render_bundle"][0][:2]
+    flush = l2_flush(torch.device(device))
+    bundle_ms = cuda_ms(lambda: programs.render_bundle(*b_args, **b_kw),
+                        flush=flush)
+    est_scaled = b_args[1].to(torch.float32) * float(np.float32(b_args[5]))
+    poisson_ms = cuda_ms(lambda: poisson_view(est_scaled), flush=flush)
+    kernels.reset_launches()
+    print(f"visualize pyramid: {n} frames, {ms:.1f} ms/frame (wall clock; "
+          f"videos after the loop {videos_s:.2f} s); vote launches "
+          f"{launches['hat_vote_image']} ({per_caller}); pred_flow{{i}}.npy "
+          f"bit-identical to phase 6's {same}; bundle clipped IWE and mask "
+          f"bit-exact vs the plain vote {bundle_exact}; render_bundle "
+          f"{bundle_ms:.3f} ms device, one Poisson view {poisson_ms:.3f} ms "
+          f"device (median of 20, L2 flushed); mp4s {videos or 'none'}; "
+          f"history plots {plots or 'none'}")
+    print(f"visualize pyramid profile: {head}: {shares}")
+    assert all(same), f"the visualizing loop's flows differ from phase 6's"
+    assert bundle_exact, "the bundle's votes differ from the plain vote"
+    results["pyramid"] = dict(
+        ms_per_frame=ms, frames=n, steady=head, sections=shares,
+        vote_launches=per_caller, bundle_ms=bundle_ms,
+        poisson_ms=poisson_ms, videos=videos, videos_s=videos_s,
+        flows_equal_serving=same)
+    del solv, first, callers
+
+    # one CMax frame, visualizing (the bundle from the host flow)
+    config = visualize_config("cmax", solver="contrast_maximization",
+                              time_list=((0.01, 0.11),))
+    viz = new_visualizer(config, device)
+    solv, launches, callers, _first, ms, lines = drive_serving(
+        config, loader, device, gt, viz=viz,
+        callers={"histograms": (cmax, "binned_histograms"),
+                 **bundle_callers})
+    cli.write_videos(viz, solv)
+    per_caller = callers.launches()
+    per_caller.pop("render_bundle")
+    check_pngs(config["output_dir"], [f"{p}0.png" for p in FRAME_PNGS])
+    print(f"visualize cmax: 1 frame, {ms:.1f} ms; launches {launches} "
+          f"({per_caller})")
+    assert solv.iter_cnt == 1
+    assert per_caller == {"histograms": 1, "bundle_clipped": 1,
+                          "bundle_mask": 1}, per_caller
+    assert launches == {"hat_vote_image": 3, "cmax_stencil_fwd": 260,
+                        "cmax_stencil_bwd": 260}, launches
+    results["cmax"] = dict(ms_per_frame=ms, launches=launches)
+    kernels.reset_launches()
+
+    # the run modes without --eval over two 10 ms windows
+    for mode, fn, pngs, votes in (
+            ("accumulate", cli.accumulate_sequential, ("orig", "filter"), 4),
+            ("sequential", cli.estimate_sequential,
+             ("original", "original_filter"), 2)):
+        config = visualize_config(mode, time_list=((0.01, 0.03),))
+        viz = new_visualizer(config, device)
+        d = config["data"]
+        solv = facades.collections[config["solver"]["method"]](
+            (H, W), (d["crop_height"], d["crop_width"]),
+            solver_config=config["solver"], visualize_module=viz,
+            device=device)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        fn(config, loader, solv)
+        cli.write_videos(viz, solv)
+        wall = time.perf_counter() - t0
+        got = dict(kernels.launches)
+        check_pngs(config["output_dir"],
+                   [f"{p}{i}.png" for p in pngs for i in range(2)])
+        mode_videos = check_videos(config["output_dir"],
+                                   PREFIX_VIDEOS[:2], 2)
+        print(f"visualize {mode} (2 windows): {wall:.2f} s, vote launches "
+              f"{got['hat_vote_image']}, mp4s {mode_videos or 'none'}")
+        assert got["hat_vote_image"] == votes, (mode, got)
+        results[mode] = dict(s=wall, vote_launches=got["hat_vote_image"])
+        kernels.reset_launches()
+
+    # one frame with the two-step Farnebäck GT (its Poisson views on the
+    # card), visualizing
+    config = visualize_config("two_step", time_list=((0.01, 0.11),),
+                              method="opencv_flow_two_steps")
+    viz = new_visualizer(config, device)
+    solv, launches, _c, _f, ms, _lines = drive_serving(config, loader,
+                                                       device, None, viz=viz)
+    cli.write_videos(viz, solv)
+    epe = check_serving_outputs(config, 1)
+    check_pngs(config["output_dir"], [f"{p}0.png" for p in FRAME_PNGS])
+    print(f"visualize, two-step GT: 1 frame, {ms:.1f} ms; EPE against the "
+          f"two-step GT without mask {epe[SERVE_TEXTS[0]]}, with mask "
+          f"{epe[SERVE_TEXTS[1]]}; vote launches {launches['hat_vote_image']}")
+    assert launches["hat_vote_image"] == 3, launches
+    results["two_step"] = dict(ms_per_frame=ms, epe=epe)
+    kernels.reset_launches()
+
+    warned = [m for m in viz_log if "matplotlib" in m]
+    print(f"visualizer warnings: {warned or 'none'}")
+    assert bool(warned) == (not have_mpl), warned
+    logging.getLogger("event_based_bos_tpu_torch.visualizer").removeHandler(
+        handler)
+    print(json.dumps({"visualize": results}))
+    return results
+
+
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                      "goldens", "pyramid_720x1280_ref_flow.npy")
+GOLDEN_ITERS = 40           # 8/10/13/20 Adam steps a scale
+GOLDEN_MSE, GOLDEN_CORR = 2e-2, 0.95
+
+
+def check_golden(device):
+    """Phase 8: the original reference's ``PatchEkltPyramid2`` at 720×1280
+    (``tests/goldens/pyramid_720x1280_ref_flow.npy``: float64, 40
+    iterations, pinned init) against the port's ``estimate_frame`` on the
+    same scene from the same init, over the ROI, at the JAX package's own
+    limits (MSE < 2e-2, correlation > 0.95)."""
+    import numpy as np
+    import torch
+
+    from event_based_bos_tpu_torch import events_from_ndarray
+    from event_based_bos_tpu_torch.data.synthetic import (SyntheticBosConfig,
+                                                          generate_sequence)
+    from event_based_bos_tpu_torch.solver import GenerativeSpec, PyramidSpec
+    from event_based_bos_tpu_torch.solver.pyramid import (estimate_frame,
+                                                          pyramid_grids,
+                                                          roi_mask)
+
+    # the golden's scene (seed 0, the bench physics) and its pinned init
+    # (one uniform [-1, 1) plane a scale from seed 2)
+    seq = generate_sequence(SyntheticBosConfig(
+        height=H, width=W, duration=1.0 / 30.0, fps=30.0,
+        events_per_frame=CAPACITY - 1024, max_displacement=3.0,
+        plume_speed=900.0, seed=0))
+    gen = GenerativeSpec(image_size=(H, W), iwe_sigma=2.0,
+                         weight_by_inverse_event_hist=True,
+                         optimize_warp=True, poisson_model=True,
+                         dtype=torch.float64)
+    spec = PyramidSpec(gen=gen, roi=ROI, coarsest_patch=64, finest_patch=8,
+                       n_iter=GOLDEN_ITERS)
+    rng = np.random.default_rng(2)
+    prev = []
+    for g in pyramid_grids(spec):
+        p = np.zeros((3,) + g.shape)
+        p[0] = rng.uniform(-1, 1, g.shape)
+        prev.append(p)
+    dev = torch.device(device)
+    ev = events_from_ndarray(seq["events"], capacity=CAPACITY,
+                             dtype=torch.float64, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flow, _aux = estimate_frame(ev, seq["frames"][1],
+                                roi_mask(spec, torch.float64), None, spec,
+                                prev_params=prev, device=dev)
+    flow = flow.cpu().numpy()
+    solve_s = time.perf_counter() - t0
+    ref = np.load(GOLDEN)
+    with open(GOLDEN.replace("_ref_flow.npy", "_meta.json")) as f:
+        meta = json.load(f)
+    crop = (slice(None), slice(ROI[0], ROI[1]), slice(ROI[2], ROI[3]))
+    mse = float(np.mean((flow[crop] - ref[crop]) ** 2))
+    corr = float(np.corrcoef(flow[crop].ravel(), ref[crop].ravel())[0, 1])
+    print(f"golden parity ({H}x{W}, float64, {GOLDEN_ITERS} iterations, "
+          f"pinned init; solve {solve_s:.1f} s): MSE {mse:.4e} ({mse!r}), "
+          f"correlation {corr:.4f} ({corr!r}); limits < {GOLDEN_MSE:g}, > "
+          f"{GOLDEN_CORR:g}; the JAX package measured MSE "
+          f"{meta['flow_mse']:.4e}, correlation {meta['flow_corr']:.4f}")
+    assert np.isfinite(flow).all() and flow.shape == ref.shape
+    assert mse < GOLDEN_MSE, f"golden MSE {mse} ≥ {GOLDEN_MSE}"
+    assert corr > GOLDEN_CORR, f"golden correlation {corr} ≤ {GOLDEN_CORR}"
+    return {"mse": mse, "corr": corr, "solve_s": solve_s,
+            "jax_mse": meta["flow_mse"], "jax_corr": meta["flow_corr"]}
 
 
 def main():
@@ -1418,12 +1775,18 @@ def main():
     check_cmax_sharpens("cuda")
     check_small_reference("cuda")
     check_small_cmax("cuda")
-    serving, mask_err = run_serving("cuda")
+    serving, mask_err, loader, gt = run_serving("cuda")
     pyr, cmax = serving["pyramid"], serving["cmax"]
     entries[0]["max_abs_err"] = max(entries[0]["max_abs_err"], mask_err)
     entries[0]["launches_serving"] = pyr["vote_launches"]
     for entry in entries:
         entry["launches_serving_cmax"] = cmax["launches"][entry["name"]]
+    visualize = run_visualize("cuda", loader, gt)
+    entries[0]["launches_visualize"] = visualize["pyramid"]["vote_launches"]
+    for entry in entries:
+        entry["launches_visualize_cmax"] = visualize["cmax"]["launches"][
+            entry["name"]]
+    check_golden("cuda")
 
     print(json.dumps({"kernels": entries}))
     print(card_line())

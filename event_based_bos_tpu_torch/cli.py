@@ -1,19 +1,26 @@
-"""Command-line entry point: the serving evaluation loop.
+"""Command-line entry point: the evaluation loop and the run modes.
 
-PyTorch port's copy of the JAX package's ``cli.py`` for its serving path:
-the same flags (``--config_file``, ``--log``, ``--eval``) and YAML schema,
-and the per-frame evaluation loop (:func:`evaluate_per_frames`) with
-``visualize: false``: per frame, the GT flow (Farnebäck) and the event
-window on the host, the solve on the card, then the (unmasked,
-event-masked) flow-error pair, the error texts and ``pred_flow{i}.npy``.
+PyTorch port's copy of the JAX package's ``cli.py``: the same flags
+(``--config_file``, ``--log``, ``--eval``), YAML schema and run modes:
+
+  * ``--eval`` → :func:`evaluate_per_frames`: per frame, the GT flow
+    (Farnebäck, one- or two-step) and the event window on the host, the
+    solve on the card, the render bundle right behind it (clipped IWE,
+    event mask, Poisson views, polar planes, error pair), then the error
+    texts and the artifacts (PNGs on the Visualizer's writer thread,
+    ``pred_flow{i}.npy``, the videos after the loop).  ``visualize:
+    false`` is the serving loop: the error pair behind the solve, the
+    texts and ``pred_flow{i}.npy`` only.
+  * no ``--eval`` → :func:`estimate_sequential` (``run_mode:
+    sequential_estimate`` also solves each window), or
+    :func:`accumulate_sequential` with ``run_mode: accumulate``.
 
     python -m event_based_bos_tpu_torch.cli --config_file configs/x.yaml --eval
 
 The loop runs on the GPU; from Python, ``main(argv, device="cpu")`` runs it
 on the CPU (without a GPU the command raises).  Not ported yet, and raising
-``NotImplementedError``: ``visualize: true``, ``estimation_method:
-openpiv`` and the run modes without ``--eval`` (ROADMAP Queue 1 #10b), and
-``mesh:`` (Queue 1 #15).
+``NotImplementedError``: ``estimation_method: openpiv`` (ROADMAP Queue 1
+#14b) and ``mesh:`` (Queue 1 #15).
 """
 
 from __future__ import annotations
@@ -30,7 +37,8 @@ from .device import resolve_device
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["validate_image", "evaluate_per_frames", "main"]
+__all__ = ["validate_image", "evaluate_per_frames", "estimate_sequential",
+           "accumulate_sequential", "write_videos", "main"]
 
 SUPPORTED_EVALUATION_METHOD = ["opencv_flow", "opencv_flow_two_steps",
                                "openpiv", "openpiv_two_steps"]
@@ -79,15 +87,19 @@ def evaluate_per_frames(config, loader, solv, viz, device=None,
       same solve, the same generator draws in frame order, frame-ordered
       finalization.
     * ``prewarm`` builds and loads the kernels before the first frame.
+    * ``debug_nans`` (set by :func:`main`) raises ``FloatingPointError``
+      when a frame's flow or loss history holds a NaN or an infinity.
 
     Frames are numbered in the producer, in frame order after the
     collapsed-frame check, so resume entries map to the same frames in
     both loop modes.
 
-    ``device`` is the solver's device (the GPU unless the caller asks for
-    another); ``gt_estimator`` replaces the Farnebäck GT
-    (``FrameFlowEstimator(viz, convention)``) with any object that has its
-    ``estimate(method, frame0, frame1, frame2, config)``.
+    ``viz`` is the :class:`~event_based_bos_tpu_torch.visualizer.Visualizer`
+    of the artifacts (None: serving).  ``device`` is the solver's device
+    (the GPU unless the caller asks for another); ``gt_estimator`` replaces
+    the Farnebäck GT (``FrameFlowEstimator(viz, convention, device)``) with
+    any object that has its ``estimate(method, frame0, frame1, frame2,
+    config)``.
     """
     from . import frame_flow, utils
     from .types import bucket_capacity
@@ -101,9 +113,6 @@ def evaluate_per_frames(config, loader, solv, viz, device=None,
     if config.get("mesh"):
         raise NotImplementedError(
             "mesh: is not ported yet (ROADMAP Queue 1 #15)")
-    if viz is not None:
-        raise NotImplementedError(
-            "the visualizing loop is not ported yet (ROADMAP Queue 1 #10b)")
 
     store = (FrameResultStore(config["output_dir"])
              if config.get("resume") else None)
@@ -120,14 +129,17 @@ def evaluate_per_frames(config, loader, solv, viz, device=None,
     crop = (common["xmin"], common["xmax"], common["ymin"], common["ymax"])
     cropped_shape = (config["data"]["crop_height"],
                      config["data"]["crop_width"])
-    need_t_downstream = "fwl" in metrics
+    # the timestamps matter downstream only to the event-warp views and
+    # FWL (the port's direct upload carries them either way)
+    need_t_downstream = viz is not None or "fwl" in metrics
     eval_dt = eval_config["dt"]
     n_events = config["data"].get("n_events_per_batch")
     max_event_dt = config["data"].get("max_time_per_event_batch")
     convention = config.get("flow_convention", "reference")
+    debug_nans = bool(config.get("debug_nans"))
     estimator = (gt_estimator if gt_estimator is not None
-                 else frame_flow.FrameFlowEstimator(viz,
-                                                    convention=convention))
+                 else frame_flow.FrameFlowEstimator(viz, convention=convention,
+                                                    device=dev))
 
     prewarm = config.get("prewarm")
     if prewarm:
@@ -196,6 +208,10 @@ def evaluate_per_frames(config, loader, solv, viz, device=None,
                                      frame2, config)
         ind1 = loader.time_to_index(t1)
         ind2 = loader.time_to_index(t2)
+        # the original window's events, for the event image of the
+        # visualizing loop
+        batch_for_gt = (loader.load_event(max(ind1, 0), min(ind2, len(loader)))
+                        if viz is not None else None)
         # window rebalancing
         if max_event_dt is not None and t2 - t1 > max_event_dt:
             t2 = t1 + max_event_dt
@@ -214,13 +230,20 @@ def evaluate_per_frames(config, loader, solv, viz, device=None,
             from .types import events_from_ndarray
 
             # a host step: the float32 record, masked and compacted
-            b = events_from_ndarray(batch, device="cpu")
-            batch = remove_event(b, 0, 120, 990, 1050).to_numpy()
-        return dict(batch=batch, gt_flow=gt_flow, im1=im1, t1=t1, t2=t2)
+            def nose_removed(arr):
+                b = events_from_ndarray(arr, device="cpu")
+                return remove_event(b, 0, 120, 990, 1050).to_numpy()
+
+            batch = nose_removed(batch)
+            if batch_for_gt is not None:
+                batch_for_gt = nose_removed(batch_for_gt)
+        return dict(batch=batch, batch_for_gt=batch_for_gt, gt_flow=gt_flow,
+                    im1=im1, t1=t1, t2=t2)
 
     def dispatch(work):
-        """Device stage: queue the solve, then the error pair (and FWL)
-        right behind it from the solve's device-resident flow."""
+        """Device stage: queue the solve, then the render bundle (with the
+        error pair) or the error pair alone, and FWL, right behind it from
+        the solve's device-resident flow."""
         with _section("estimate"):
             handle = solv.estimate_async(
                 work["filtered"], work["gt_flow"], frame=work["im1"],
@@ -232,8 +255,13 @@ def evaluate_per_frames(config, loader, solv, viz, device=None,
                 if "fwl" in metrics:
                     handle.fwl_fetch = solv.calculate_fwl_async(
                         work["filtered"], dev_flow, scale)
-                handle.errors_fetch = solv.flow_errors_async(
-                    work["filtered"], work["gt_flow"], dev_flow, crop)
+                if solv.visualizer is not None:
+                    handle.bundle_fetch = solv.render_bundle_async(
+                        work["filtered"], None, work["gt_flow"],
+                        est_device=dev_flow, est_scale=scale, err_crop=crop)
+                else:
+                    handle.errors_fetch = solv.flow_errors_async(
+                        work["filtered"], work["gt_flow"], dev_flow, crop)
         return handle
 
     def finalize(work, handle, i_frame):
@@ -245,17 +273,45 @@ def evaluate_per_frames(config, loader, solv, viz, device=None,
                 steady_state[1] = time.perf_counter()
 
     def _finalize(work, handle, i_frame):
+        if viz is not None:
+            # artifact names follow the frame number (resume skips frames)
+            viz.set_frame_index(i_frame)
         with _section("finalize/solve_wait"):
             estimation = handle.result()
+        if debug_nans:
+            _check_finite(i_frame, estimation,
+                          getattr(handle, "loss_history", None))
         gt_flow, filtered = work["gt_flow"], work["filtered"]
         t1, t2 = work["t1"], work["t2"]
         batch_time_scale = work["batch_time_scale"]
         scale = (t2 - t1) / batch_time_scale if batch_time_scale else 1.0
         est_scaled = estimation * scale
 
+        errors = None
+        with _section("finalize/visualize"):
+            if solv.visualizer is not None:
+                fetch = getattr(handle, "bundle_fetch", None)
+                b = (fetch() if fetch is not None else solv.render_bundle(
+                    filtered, est_scaled, gt_flow, est_scale=scale,
+                    err_crop=crop))
+                errors = b["errors"]
+                solv.visualize_original_sequential(
+                    work["batch_for_gt"], filtered, clipped=b["clipped"])
+                solv.visualize_flows(est_scaled, gt_flow,
+                                     polar_pred=b["polar_est"],
+                                     polar_gt=b["polar_gt"])
+                solv.visualize_pred_sequential(
+                    filtered, est_scaled, poisson=b["poisson_est"],
+                    mask=b["mask"], polar=b["polar_est"])
+                solv.visualize_gt_sequential(
+                    filtered, gt_flow, poisson=b["poisson_gt"],
+                    mask=b["mask"], polar=b["polar_gt"])
+
         with _section("finalize/errors"):
             err_fetch = getattr(handle, "errors_fetch", None)
-            if err_fetch is not None:
+            if errors is not None:
+                err_nomask, err_mask = errors
+            elif err_fetch is not None:
                 err_nomask, err_mask = err_fetch()
             else:
                 est_c = estimation[:, crop[0]:crop[1], crop[2]:crop[3]]
@@ -273,10 +329,16 @@ def evaluate_per_frames(config, loader, solv, viz, device=None,
             solv.save_flow_error_as_text(i_frame, fwl, "fwl_per_frame.txt")
         solv.save_flow_error_as_text(i_frame, {"t1": t1, "t2": t2},
                                      "timestamps_per_frame.txt")
-        # serving mode: the flow itself is the product
-        np.save(os.path.join(config["output_dir"], f"pred_flow{i_frame}.npy"),
-                est_scaled)
+        if viz is None:
+            # serving mode: the flow itself is the product, named as the
+            # visualizer names it
+            np.save(os.path.join(config["output_dir"],
+                                 f"pred_flow{i_frame}.npy"), est_scaled)
         if store is not None:
+            if viz is not None:
+                # the manifest marks the frame complete: its artifacts must
+                # be on disk first
+                viz.flush()
             store.record(i_frame, flow=estimation, t1=float(t1),
                          t2=float(t2), **err_nomask)
 
@@ -320,10 +382,143 @@ def evaluate_per_frames(config, loader, solv, viz, device=None,
                 steady_timer.report(n_frames=n_steady, wall_s=wall))
 
 
+def _check_finite(i_frame, flow, loss_history) -> None:
+    """``debug_nans``: raise ``FloatingPointError`` when frame ``i_frame``'s
+    host flow or any of its loss histories (device tensors) holds a NaN or
+    an infinity."""
+    import torch
+
+    if not np.isfinite(flow).all():
+        raise FloatingPointError(f"frame {i_frame}: non-finite flow")
+    for i, h in enumerate(loss_history or ()):
+        if h is not None and not bool(torch.isfinite(h).all()):
+            raise FloatingPointError(
+                f"frame {i_frame}: non-finite loss history (scale {i})")
+
+
+@contextlib.contextmanager
+def _nan_checks(enabled: bool):
+    """``debug_nans`` for the run: autograd's anomaly mode with its NaN
+    check, whose error (a backward function returned NaN) is raised as
+    ``FloatingPointError``.  It watches the backward pass only; a NaN in a
+    forward intermediate is caught where it reaches the frame's flow or
+    loss history (:func:`_check_finite`), not at the operation that made
+    it, as JAX's ``jax_debug_nans`` would."""
+    if not enabled:
+        yield
+        return
+    import torch
+
+    with torch.autograd.detect_anomaly(check_nan=True):
+        try:
+            yield
+        except RuntimeError as e:
+            if "nan values" not in str(e):
+                raise
+            raise FloatingPointError(str(e)) from e
+
+
+def estimate_sequential(config, loader, solv, run_estimation: bool = False):
+    """Sequential pass over fixed-stride time windows (10 ms apart, each
+    ``dt · 8`` ms long): the timestamps text and each window's event image
+    and clipped IWE.  ``run_estimation`` (``run_mode:
+    sequential_estimate``) also solves each window (warm-started with
+    ``warm_start: true``) and renders the flow."""
+    eval_config = config["evaluation"]
+    eval_dt = eval_config["dt"]
+    sliding_window = 0.01
+    i_frame = 0
+    for t_start, t_end in eval_config["time_list"]:
+        for t1 in np.arange(t_start, t_end, sliding_window):
+            t2 = t1 + eval_dt * 0.008
+            ind1 = loader.time_to_index(t1)
+            ind2 = loader.time_to_index(t2)
+            batch = loader.load_event(max(ind1, 0), min(ind2, len(loader)))
+            filtered, _scale = solv.preprocess(batch)
+            solv.save_flow_error_as_text(i_frame, {"t1": t1, "t2": t2},
+                                         "timestamps_per_frame.txt")
+            solv.visualize_original_sequential(batch, filtered)
+            if run_estimation:
+                frame = None
+                if hasattr(loader, "time_to_image_index"):
+                    try:
+                        frame, _ts = loader.load_image(
+                            max(loader.time_to_image_index(t1), 0))
+                    except (NotImplementedError, AssertionError, IndexError):
+                        frame = None
+                estimation = solv.estimate(filtered, None, frame=frame,
+                                           background=frame, frame_time=t1)
+                solv.visualize_pred_sequential(filtered, estimation)
+            i_frame += 1
+
+
+def accumulate_sequential(config, loader, solv):
+    """Accumulated polarity difference images over fixed-stride windows:
+    per time range, the running (positive, negative) vote pair of the raw
+    and of the filtered events (one vote launch each a window on the
+    card), accumulated in float64 on the solver's device, written as the
+    center-standardized ``orig{i}.png`` and ``filter{i}.png``."""
+    import torch
+
+    from .ops.image_warp import standardize_image_center
+    from .ops.iwe import create_image_from_events
+    from .types import events_from_ndarray
+
+    eval_config = config["evaluation"]
+    eval_dt = eval_config["dt"]
+    sliding_window = 0.01
+    shape = solv.orig_image_shape
+    i_frame = 0
+
+    def view(pair):
+        return standardize_image_center(pair[0] - pair[1]).to(
+            torch.uint8).cpu().numpy()
+
+    for t_start, t_end in eval_config["time_list"]:
+        pos_neg = torch.zeros((2,) + shape, dtype=torch.float64,
+                              device=solv.device)
+        filt_pos_neg = torch.zeros_like(pos_neg)
+        for t1 in np.arange(t_start, t_end, sliding_window):
+            t2 = t1 + eval_dt * 0.008
+            ind1 = loader.time_to_index(t1)
+            ind2 = loader.time_to_index(t2)
+            batch = loader.load_event(max(ind1, 0), min(ind2, len(loader)))
+            filtered, _ = solv.preprocess(batch)
+            ev = events_from_ndarray(batch, device=solv.device)
+            pos_neg += create_image_from_events(ev, shape, "polarity")
+            filt_pos_neg += create_image_from_events(filtered, shape,
+                                                     "polarity")
+            solv.visualizer.visualize_image(view(pos_neg), file_prefix="orig")
+            solv.visualizer.visualize_image(view(filt_pos_neg),
+                                            file_prefix="filter")
+            solv.save_flow_error_as_text(i_frame, {"t1": t1, "t2": t2},
+                                         "timestamps_per_frame.txt")
+            i_frame += 1
+
+
+def write_videos(viz, solv) -> None:
+    """After a run: drain the Visualizer's writer, finish the video of
+    each prefix the solver registered, then the side-by-side comparison
+    videos (best-effort: a failure is logged)."""
+    viz.flush()
+    for v in solv.sequential_video_list:
+        logger.info("Make video %s…", v)
+        viz.visualize_sequential_images_as_video(v)
+    for prefixes, name in (
+            (["original", "pred_flow", "gt_flow"], "flow_comparison"),
+            (["original", "pred_masked", "gt_masked"],
+             "flow_comparison_masked"),
+            (["original", "original_filter"], "video_filter_effect")):
+        try:
+            viz.concat_videos(prefixes, name)
+        except Exception as e:  # comparison videos are best-effort
+            logger.warning("Video concat skipped: %s", e)
+
+
 def main(argv=None, device=None):
     """Run the CLI with ``argv`` (``sys.argv[1:]`` by default) on
     ``device`` (the GPU unless the caller asks for another)."""
-    from . import data, solver, utils
+    from . import data, solver, utils, visualizer
 
     dev = resolve_device(device)
     config, args = utils.parse_args(argv=argv)
@@ -331,42 +526,60 @@ def main(argv=None, device=None):
     save_dir = config["output_dir"]
     utils.save_config(save_dir, args.config_file, args.log.upper())
 
-    if not args.eval:
-        raise NotImplementedError(
-            "the sequential and accumulate run modes (no --eval) are not "
-            "ported yet (ROADMAP Queue 1 #10b)")
-    assert config["method"] in SUPPORTED_EVALUATION_METHOD
-    assert config["estimation_method"] in SUPPORTED_ESTIMATION_METHOD
-    if config["estimation_method"] == "openpiv":
-        raise NotImplementedError(
-            "estimation_method: openpiv is not ported yet (ROADMAP Queue 1 "
-            "#10b)")
-    if config.get("visualize", True):
-        raise NotImplementedError(
-            "visualize: true is not ported yet (ROADMAP Queue 1 #10b); set "
-            "visualize: false for the serving loop")
-    if config.get("debug_nans"):
-        raise NotImplementedError(
-            "debug_nans is not ported yet (ROADMAP Queue 1 #10b)")
+    if args.eval:
+        assert config["method"] in SUPPORTED_EVALUATION_METHOD
+        assert config["estimation_method"] in SUPPORTED_ESTIMATION_METHOD
+        if config["estimation_method"] == "openpiv":
+            raise NotImplementedError(
+                "estimation_method: openpiv (PIV on event histograms) is not "
+                "ported yet (ROADMAP Queue 1 #14b)")
 
     loader = data.collections[data_config["dataset"]](config=data_config)
     loader.set_sequence(data_config["sequence"])
 
     orig_shape = (data_config["height"], data_config["width"])
     crop_shape = (data_config["crop_height"], data_config["crop_width"])
+    # visualize: false = serving: flow arrays and error texts only; the
+    # other run modes exist to produce the images
+    serving = not config.get("visualize", True)
+    if serving and not (args.eval
+                        and config.get("estimation_method") == "solver"):
+        logger.warning("visualize: false only applies to the solver "
+                       "evaluation loop — ignoring.")
+        serving = False
+    # PNG encodes and history plots run on the writer thread, flushed
+    # before the videos are assembled
+    viz = (None if serving else
+           visualizer.Visualizer(orig_shape, save=True, show=False,
+                                 save_dir=save_dir, async_writes=True,
+                                 device=dev))
+
     method_name = config["solver"]["method"]
     config["solver"].setdefault("flow_convention",
                                 config.get("flow_convention", "reference"))
     solv = solver.collections[method_name](
         orig_shape, crop_shape, calibration_parameter=loader.load_calib(),
-        solver_config=config["solver"], visualize_module=None, device=dev)
-    solv.output_dir = save_dir  # the result texts' directory
+        solver_config=config["solver"], visualize_module=viz, device=dev)
+    solv.output_dir = save_dir  # the result texts' directory without viz
 
     logger.info("Start BOS estimation.")
-    evaluate_per_frames(config, loader, solv, None, device=dev)
-    for fname in solv.evaluation_text_list:
-        _data, stat = utils.read_flow_error_text(fname)
-        logger.info("Evaluation %s:\n%s", fname, stat)
+    with _nan_checks(bool(config.get("debug_nans"))):
+        if args.eval:
+            evaluate_per_frames(config, loader, solv, viz, device=dev)
+        elif config.get("run_mode") == "accumulate":
+            accumulate_sequential(config, loader, solv)
+        elif config.get("run_mode") == "sequential_estimate":
+            estimate_sequential(config, loader, solv, run_estimation=True)
+        else:
+            estimate_sequential(config, loader, solv)
+
+    if viz is not None:
+        write_videos(viz, solv)
+
+    if args.eval:
+        for fname in solv.evaluation_text_list:
+            _data, stat = utils.read_flow_error_text(fname)
+            logger.info("Evaluation %s:\n%s", fname, stat)
     return 0
 
 

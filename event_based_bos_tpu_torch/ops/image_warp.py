@@ -9,7 +9,9 @@ PyTorch counterpart of the JAX package's ``ops/image_warp.py``:
   * :func:`shift_image_matrix` / :func:`warp_image_shift` — a global
     bilinear shift, as two banded matmuls or as a gather;
   * :func:`resize_bilinear` — half-pixel bilinear resize as two matmuls
-    with interpolation matrices built in numpy.
+    with interpolation matrices built in numpy;
+  * :func:`standardize_image_minmax`, :func:`standardize_image_center` and
+    :func:`range_norm` — the display normalisations of the visualizer.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from ..numerics import abs_
 
 __all__ = ["sample_bilinear", "warp_image_forward", "warp_image_stencil",
            "shift_image_matrix", "warp_image_shift", "resize_matrix",
-           "resize_bilinear"]
+           "resize_bilinear", "standardize_image_minmax",
+           "standardize_image_center", "range_norm"]
 
 
 def sample_bilinear(image: torch.Tensor, rows: torch.Tensor,
@@ -189,3 +192,34 @@ def resize_bilinear(image: torch.Tensor, out_shape: Tuple[int, int]
     mh = resize_matrix(h, oh, image.dtype, image.device)
     mw = resize_matrix(w, ow, image.dtype, image.device)
     return torch.matmul(torch.matmul(mh, image), mw.T)
+
+
+def standardize_image_minmax(array: torch.Tensor, new_min: float = 0.0,
+                             new_max: float = 255.0) -> torch.Tensor:
+    """Min-max standardization onto ``[new_min, new_max]``."""
+    st = (array - array.min()) / (array.max() - array.min())
+    return st * (new_max - new_min) + new_min
+
+
+def standardize_image_center(array: torch.Tensor, old_center: float = 0.0,
+                             new_center: float = 128.0,
+                             new_max: float = 255.0) -> torch.Tensor:
+    """Center-preserving standardization: ``old_center`` maps to
+    ``new_center`` and the largest magnitude to ``new_max`` (a NaN
+    propagates, as in ``jnp.maximum``)."""
+    max_abs = torch.clamp(torch.abs(array).max(), min=1e-12)
+    return ((array - old_center) / max_abs * (new_max - new_center)
+            + new_center)
+
+
+def range_norm(array: torch.Tensor, lower=None, upper=None,
+               new_max: float = 255.0) -> torch.Tensor:
+    """Clip to ``[lower, upper]`` (the array's own range by default), then
+    scale onto ``[0, new_max]``."""
+    lower = array.min() if lower is None else lower
+    upper = array.max() if upper is None else upper
+    clipped = torch.minimum(
+        torch.maximum(array, torch.as_tensor(lower, dtype=array.dtype,
+                                             device=array.device)),
+        torch.as_tensor(upper, dtype=array.dtype, device=array.device))
+    return (clipped - lower) / (upper - lower + 1e-12) * new_max

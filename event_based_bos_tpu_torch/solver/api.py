@@ -4,7 +4,12 @@ PyTorch counterpart of the JAX package's ``solver/api.py``: the constructor
 signature the reference's solvers take from the YAML config, and the public
 methods (``preprocess`` / ``estimate`` / ``estimate_async`` /
 ``calculate_flow_error(s)`` / ``calculate_fwl`` / ``save_flow_error_as_text``
-/ ``visualize_*``) over the port's per-frame estimators.  The concrete
+/ ``render_bundle(_async)`` / ``visualize_*``) over the port's per-frame
+estimators.  The ``visualize_*`` methods write through the solver's
+``Visualizer`` and do nothing without one.  The JAX bundle's
+transfer-shrinking options (the cropped GT upload, the ROI-box polar
+planes, the bit-packed mask) are not ported: they rebuild the same
+full-frame planes that the port's bundle returns directly.  The concrete
 facades live in :mod:`.facades` (re-exported here).
 
 The solver runs on the GPU unless it is built with ``device="cpu"``; with no
@@ -39,6 +44,7 @@ import torch
 from ..device import resolve_device
 from ..ops.events import time_period
 from ..ops.filters import EventFilter
+from ..ops.warp import warp_event
 from ..types import Events, bucket_capacity, events_from_ndarray
 from . import programs
 
@@ -149,7 +155,9 @@ class SolverBase:
                                                    "reference")
         self.normalize_t_in_batch = True
         self.previous_frame_best_estimation = None
+        self.sequential_video_list: List[str] = []
         self.evaluation_text_list: List[str] = []
+        self.iwe_visualize_max_scale = self.slv_config.get("max_scale", 50)
         self.motion_model = self.slv_config.get("motion_model", "dense-flow")
         self._generator = torch.Generator(self.device).manual_seed(
             int(self.slv_config.get("seed", 0)))
@@ -327,7 +335,9 @@ class SolverBase:
         """Append one frame's results as ``frame N::{dict}`` (the values
         must be Python numbers: the line is parsed back with
         ``ast.literal_eval``)."""
-        if getattr(self, "output_dir", None):
+        if self.visualizer is not None:
+            path = os.path.join(self.visualizer.save_dir, fname)
+        elif getattr(self, "output_dir", None):
             path = os.path.join(self.output_dir, fname)
         else:
             path = fname
@@ -341,30 +351,189 @@ class SolverBase:
         self.previous_frame_best_estimation = previous_best
 
     # -- visualization ---------------------------------------------------------------
-    def _no_visualizer(self) -> None:
-        """The ``visualize_*`` methods do nothing without a visualizer; the
-        visualizer is not ported yet."""
-        if self.visualizer is not None:
-            raise NotImplementedError(
-                "visualization is not ported yet (ROADMAP Queue 1 #10b)")
+    def render_bundle(self, events, est_scaled, gt_flow, est_device=None,
+                      est_scale=1.0, err_crop=None) -> dict:
+        """Every per-frame visualization plane in one pass and one fetch:
+        ``{"clipped", "mask", "poisson_est", "poisson_gt", "polar_est",
+        "polar_gt"}`` (numpy), and with ``err_crop`` (the evaluation ROI
+        ``(x0, x1, y0, y1)``) the (unmasked, event-masked) error pair of
+        the ROI-cropped unscaled flows under ``"errors"``.
 
-    def visualize_original_sequential(self, *args, **kwargs):
-        self._no_visualizer()
+        ``est_device`` (+ ``est_scale``) supplies the solve's
+        device-resident unoriented flow (``EstimationHandle.device_flow``):
+        the time rescale and the orientation sign then apply on the device
+        and the host ``est_scaled`` is not uploaded.
+        """
+        return self.render_bundle_async(events, est_scaled, gt_flow,
+                                        est_device=est_device,
+                                        est_scale=est_scale,
+                                        err_crop=err_crop)()
 
-    def visualize_pred_sequential(self, *args, **kwargs):
-        self._no_visualizer()
+    def render_bundle_async(self, events, est_scaled, gt_flow,
+                            est_device=None, est_scale=1.0, err_crop=None):
+        """:meth:`render_bundle` queued now, right behind the solve that
+        makes ``est_device``, with its copies to the host started; returns
+        ``fetch() -> dict``, which waits for them."""
+        ev = self._to_events(events)
+        if est_device is not None:
+            sign = -1.0 if self.flow_convention == "physical" else 1.0
+            est_in = est_device
+            sc = float(est_scale) * sign
+            err_sc = sign
+        else:
+            est_in = self._device_array(est_scaled)
+            sc = 1.0
+            err_sc = 1.0 / float(est_scale) if est_scale else 1.0
+        out = programs.render_bundle(
+            ev, est_in, self._device_array(gt_flow), self.orig_image_shape,
+            float(self.iwe_visualize_max_scale), sc, err_sc, err_crop)
+        planes = fetch_later([out["clipped"], out["mask"], out["poisson_est"],
+                              out["poisson_gt"], *out["polar_est"],
+                              *out["polar_gt"]])
+        errors = _errors_later(out["errors"]) if err_crop is not None else None
+        mask_device = out["mask"]
 
-    def visualize_gt_sequential(self, *args, **kwargs):
-        self._no_visualizer()
+        def fetch() -> dict:
+            clipped, mask, poi_est, poi_gt, ang_e, mag_e, ang_g, mag_g = (
+                t.numpy() for t in planes())
+            if self.padding > 0:
+                clipped = clipped[self.padding:-self.padding,
+                                  self.padding:-self.padding]
+            self._eventmask_memo = (ev.x, mask_device)
+            bundle = {"clipped": clipped, "mask": mask,
+                      "poisson_est": poi_est, "poisson_gt": poi_gt,
+                      "polar_est": (ang_e, mag_e),
+                      "polar_gt": (ang_g, mag_g)}
+            if errors is not None:
+                errs = errors()
+                logger.info("flow_error = %s", errs[0])
+                logger.info("flow_error = %s", errs[1])
+                bundle["errors"] = errs
+            return bundle
 
-    def visualize_flows(self, *args, **kwargs):
-        self._no_visualizer()
+        return fetch
 
-    def visualize_one_batch_warp(self, *args, **kwargs):
-        self._no_visualizer()
+    def create_clipped_image(self, events, max_scale=50) -> np.ndarray:
+        """Inverted clipped IWE for viewing (uint8; one vote launch on the
+        card)."""
+        ev = self._to_events(events)
+        clipped = programs.clipped_iwe(ev, self.orig_image_shape,
+                                       float(max_scale)).cpu().numpy()
+        if self.padding > 0:
+            clipped = clipped[self.padding:-self.padding,
+                              self.padding:-self.padding]
+        return clipped
 
-    def visualize_one_batch_warp_gt(self, *args, **kwargs):
-        self._no_visualizer()
+    def _register_video(self, prefix: str):
+        if prefix not in self.sequential_video_list:
+            self.sequential_video_list.append(prefix)
+            if self.visualizer is not None:
+                # a registered prefix streams its frames into the mp4 as
+                # they are written (registration precedes the prefix's
+                # first frame in every visualize_* method below)
+                self.visualizer.enable_video_stream(prefix)
+
+    def visualize_original_sequential(self, orig_events, filter_events,
+                                      clipped=None):
+        """The raw window's event image and the filtered window's clipped
+        IWE (``clipped``: the render bundle's, else voted here)."""
+        if self.visualizer is None:
+            return
+        orig = (orig_events.to_numpy() if isinstance(orig_events, Events)
+                else orig_events)
+        self._register_video("original")
+        self.visualizer.visualize_event(orig, file_prefix="original")
+        if clipped is None:
+            clipped = self.create_clipped_image(filter_events,
+                                                self.iwe_visualize_max_scale)
+        self._register_video("original_filter")
+        self.visualizer.visualize_image(clipped, file_prefix="original_filter")
+
+    def visualize_pred_sequential(self, events, flow, poisson=None,
+                                  mask=None, polar=None):
+        """The estimate's color, ``.npy``, Poisson and event-masked views;
+        ``poisson``/``mask``/``polar`` are the render bundle's, else made
+        here."""
+        if self.visualizer is None:
+            return
+        flow = np.asarray(flow)
+        self._register_video("pred_flow")
+        self.visualizer.visualize_optical_flow(
+            flow[0], flow[1], visualize_color_wheel=False,
+            file_prefix="pred_flow", save_flow=True, polar=polar)
+        self._register_video("pred_flow_poisson")
+        self.visualizer.visualize_poisson_integration(
+            flow, file_prefix="pred_flow_poisson", image=poisson)
+        if mask is None:
+            mask = self._eventmask(self._to_events(events)).cpu().numpy()
+        self._register_video("pred_masked")
+        self.visualizer.visualize_optical_flow_on_event_mask(
+            flow, None, file_prefix="pred_masked", mask_color="black",
+            mask_morph=True, mask=mask, polar=polar)
+
+    def visualize_gt_sequential(self, events, gt_flow, poisson=None,
+                                mask=None, polar=None):
+        """The GT's color, Poisson and event-masked views."""
+        if self.visualizer is None:
+            return
+        gt_flow = np.asarray(gt_flow)
+        self._register_video("gt_flow")
+        self.visualizer.visualize_optical_flow(
+            gt_flow[0], gt_flow[1], visualize_color_wheel=False,
+            file_prefix="gt_flow", save_flow=False, polar=polar)
+        self._register_video("gt_flow_poisson")
+        self.visualizer.visualize_poisson_integration(
+            gt_flow, file_prefix="gt_flow_poisson", image=poisson)
+        if mask is None:
+            mask = self._eventmask(self._to_events(events)).cpu().numpy()
+        self._register_video("gt_masked")
+        self.visualizer.visualize_optical_flow_on_event_mask(
+            gt_flow, None, file_prefix="gt_masked", mask_color="black",
+            mask_morph=True, mask=mask, polar=polar)
+
+    def visualize_flows(self, pred_flow, gt_flow, polar_pred=None,
+                        polar_gt=None):
+        """The estimate and the GT colorized on one scale."""
+        if self.visualizer is None:
+            return
+        self.visualizer.visualize_optical_flow_pred_and_gt(
+            np.asarray(pred_flow), np.asarray(gt_flow),
+            pred_file_prefix="flow_comparison_pred",
+            gt_file_prefix="flow_comparison_gt",
+            polar_pred=polar_pred, polar_gt=polar_gt)
+
+    def visualize_one_batch_warp(self, events, warp=None):
+        """The clipped IWE of the events, warped by ``warp`` (the solver's
+        motion model) when given."""
+        if self.visualizer is None:
+            return
+        ev = self._to_events(events)
+        if warp is not None:
+            motion = self._device_array(warp).to(self.dtype)
+            ev = warp_event(ev, motion, self.motion_model, direction="middle",
+                            normalize_t=self.normalize_t_in_batch)
+        clipped = self.create_clipped_image(ev, self.iwe_visualize_max_scale)
+        self.visualizer.visualize_image(clipped)
+
+    def visualize_one_batch_warp_gt(self, events, gt_warp,
+                                    motion_model: str = "dense-flow"):
+        """The clipped IWE of the events warped by the GT (``[2, H, W]`` or
+        ``[H, W, 2]``), and with a dense flow its overlay on that image."""
+        if self.visualizer is None:
+            return
+        ev = self._to_events(events)
+        gt = np.asarray(gt_warp)
+        if motion_model == "dense-flow" and gt.ndim == 3 and gt.shape[-1] == 2:
+            gt = gt.transpose(2, 0, 1)
+        warped = warp_event(ev, self._device_array(gt).to(self.dtype),
+                            motion_model, direction="middle",
+                            normalize_t=self.normalize_t_in_batch)
+        clipped = self.create_clipped_image(warped,
+                                            self.iwe_visualize_max_scale)
+        self.visualizer.visualize_image(clipped)
+        if motion_model == "dense-flow":
+            self.visualizer.visualize_overlay_optical_flow_on_event(gt,
+                                                                    clipped)
 
     # -- model image handling ---------------------------------------------------------
     def _model_frame(self, kwargs) -> np.ndarray:
@@ -379,6 +548,12 @@ class SolverBase:
                 self._background = np.asarray(kwargs["background"])
             return self._background
         raise ValueError(f"Unknown model_image {mode!r}")
+
+    def _viz_diff_scale(self):
+        """``generative_ml.viz_diff_scale``: the fixed color scale of the
+        DEBUG ``opt_diff`` evolution view."""
+        g = self.slv_config.get("generative_ml", {})
+        return tuple(g.get("viz_diff_scale", (-0.25, 0.25)))
 
     def _orient_flow(self, flow: np.ndarray) -> np.ndarray:
         """Apply the output convention (see the module docstring)."""

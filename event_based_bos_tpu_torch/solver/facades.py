@@ -29,6 +29,17 @@ __all__ = ["GenerativeMaximumLikelihood", "PatchEklt", "PatchEkltDependent",
            "PatchEkltPyramid2", "ContrastMaximization", "collections"]
 
 
+def _evolution_stride(solver_config, n_iter: int) -> int:
+    """Iterate-recording stride of the DEBUG evolution videos: the
+    ``record_evolution`` key (0 = off, n = every n-th iterate), else, at
+    DEBUG log level, a stride that caps the video at ~120 frames."""
+    if "record_evolution" in (solver_config or {}):
+        return int(solver_config["record_evolution"])
+    if logger.isEnabledFor(logging.DEBUG):
+        return max(1, n_iter // 120)
+    return 0
+
+
 def _generative_spec(orig_image_shape, solver_config, dtype
                      ) -> GenerativeSpec:
     """The generative model's spec from the ``generative_ml`` section and
@@ -103,6 +114,8 @@ class PatchEkltPyramid2(SolverBase):
             lr=float(opt.get("lr", 0.05)),
             lr_decay=float(opt.get("lr_decay", 0.1)),
             track_best=bool(self.slv_config.get("track_best", True)),
+            record_evolution=_evolution_stride(self.slv_config,
+                                               int(opt.get("n_iter", 600))),
             n_restarts=int(self.slv_config.get("n_restarts", 1)),
         )
         warm = bool(self.slv_config.get("warm_start"))
@@ -135,7 +148,9 @@ class PatchEkltPyramid2(SolverBase):
                     "frame is cold and must run the full n_iter.")
             if steady < 1:
                 raise ValueError(f"steady_n_iter must be >= 1, got {steady}")
-            self.spec_steady = dataclasses.replace(self.spec, n_iter=steady)
+            self.spec_steady = dataclasses.replace(
+                self.spec, n_iter=steady,
+                record_evolution=_evolution_stride(self.slv_config, steady))
         else:
             self.spec_steady = None
         sic = self.slv_config.get("split_iwe_cache", "auto")
@@ -165,7 +180,9 @@ class PatchEkltPyramid2(SolverBase):
     def estimate_async(self, events, *args, **kwargs) -> EstimationHandle:
         """Queue the IWE cache and the pyramid solve (and the warm-start
         feedback for the next frame); the returned handle's ``result()``
-        waits for the flow's ROI box and rebuilds the full frame."""
+        waits for the flow's ROI box and rebuilds the full frame, and with
+        a visualizer plots the loss curve of each scale (and the recorded
+        evolution, :mod:`.evolution`)."""
         ev = self._to_events(events)
         frame = self._frame(kwargs)
         prev = self.previous_frame_best_estimation
@@ -183,6 +200,16 @@ class PatchEkltPyramid2(SolverBase):
                 update_coarse_from_fine(aux["params_per_scale"], used_spec))
 
         def finalize() -> np.ndarray:
+            if self.visualizer is not None:
+                self.visualizer.visualize_scipy_history(
+                    {f"scale{i}": h.detach().cpu().numpy()
+                     for i, h in enumerate(aux["loss_history"])})
+                if "params_history" in aux:
+                    from .evolution import render_pyramid_evolution
+
+                    render_pyramid_evolution(self.visualizer, frame, ev, aux,
+                                             used_spec, self.iter_cnt,
+                                             diff_scale=self._viz_diff_scale())
             self.iter_cnt += 1
             arr = fetch()[0].numpy().astype(np.float32)
             if box is not None:
@@ -197,6 +224,7 @@ class PatchEkltPyramid2(SolverBase):
         self.dispatch_cnt += 1
         handle = EstimationHandle(finalize)
         handle.device_flow = flow
+        handle.loss_history = aux["loss_history"]
         return handle
 
 
@@ -244,8 +272,8 @@ class ContrastMaximization(SolverBase):
 
     def estimate_async(self, events, *args, **kwargs) -> EstimationHandle:
         ev = self._to_events(events)
-        flow, _aux = estimate_frame_cmax(ev, None, self._generator, self.spec,
-                                         device=self.device)
+        flow, aux = estimate_frame_cmax(ev, None, self._generator, self.spec,
+                                        device=self.device)
         fetch = fetch_later([flow])
 
         def finalize() -> np.ndarray:
@@ -255,7 +283,10 @@ class ContrastMaximization(SolverBase):
             return np.ascontiguousarray(fetch()[0].numpy())
 
         self.dispatch_cnt += 1
-        return EstimationHandle(finalize)
+        handle = EstimationHandle(finalize)
+        # the dense solve's per-scale histories, the translation's one
+        handle.loss_history = aux.get("loss_history", [aux.get("history")])
+        return handle
 
 
 collections = {

@@ -1,14 +1,21 @@
-"""The port's serving CLI (``cli.main … --eval``) against the JAX package's.
+"""The port's CLI (``cli.main``) against the JAX package's.
 
 Both CLIs run a copy of ``configs/synthetic_plume.yaml`` cut to a small
 scene (64×96, float64, a few Adam steps per scale, three frames,
-``visualize: false``), written to ``tmp_path``; the port runs with
-``device="cpu"``.  Every cold frame of both starts from one numpy init (the
-``estimate_frame`` name in each package's ``solver.facades`` is wrapped;
-no file of the JAX package changes).
+``visualize: false`` unless a case says otherwise), written to
+``tmp_path``; the port runs with ``device="cpu"``.  Every cold frame of
+both starts from one numpy init (the ``estimate_frame`` name in each
+package's ``solver.facades`` is wrapped; no file of the JAX package
+changes).
 
 Tolerances: the error texts hold the same frames and keys, with values
-within 1e-6 relative; ``pred_flow{i}.npy`` within 1e-6 px.  The port's
+within 1e-6 relative; ``pred_flow{i}.npy`` within 1e-6 px with the same
+signs.  The visualizing loop and the run modes write the same artifact
+names (mp4s only where cv2 has a codec); a PNG's decoded pixels differ on
+at most 0.1 % of its pixels (the render bundle's hue plane), a Poisson
+view's by at most 1 LSB.  The JAX CLI's visualizing loop runs pipelined
+there: in its synchronous loop a frame's loss plot is drawn before the
+frame index is pinned, under the previous frame's name.  The port's
 pipelined loop equals its synchronous loop bit for bit.
 """
 
@@ -20,6 +27,7 @@ import numpy as np
 import pytest
 import yaml
 
+import cv2
 import event_based_bos_tpu.cli as jcli
 import event_based_bos_tpu.solver.facades as jfacades
 import event_based_bos_tpu_torch.cli as tcli
@@ -61,10 +69,69 @@ def _write(tmp_path, tag, cfg):
         cfg["output_dir"])
 
 
-def _run_port(tmp_path, tag, cfg):
+def _run_port(tmp_path, tag, cfg, argv_eval=True):
     argv, out = _write(tmp_path, tag, cfg)
-    assert tcli.main(argv, device="cpu") == 0
+    assert tcli.main(argv if argv_eval else argv[:-1], device="cpu") == 0
     return out
+
+
+def _run_jax(tmp_path, cfg, argv_eval=True):
+    argv, out = _write(tmp_path, "jax", cfg)
+    assert jcli.main(argv if argv_eval else argv[:-1]) == 0
+    return out
+
+
+def _has_codec(tmp_path):
+    w = cv2.VideoWriter(str(tmp_path / "probe.mp4"),
+                        cv2.VideoWriter_fourcc(*"mp4v"), 20.0, (16, 16))
+    ok = w.isOpened()
+    w.release()
+    return ok
+
+
+def _assert_artifacts_close(tmp_path, got_dir, want_dir):
+    """The same artifact names (the copied configs and, without a codec,
+    the mp4s aside); PNG pixels within the bundle tolerances; mp4s of the
+    same frame count and size."""
+    skip = (".yaml",) if _has_codec(tmp_path) else (".yaml", ".mp4")
+
+    def names(d):
+        return sorted(p.name for p in d.iterdir()
+                      if not p.name.endswith(skip))
+
+    got = names(got_dir)
+    assert got == names(want_dir)
+    for name in got:
+        if name.endswith(".png"):
+            a, b = (cv2.imread(str(d / name), cv2.IMREAD_UNCHANGED)
+                    for d in (got_dir, want_dir))
+            assert a.shape == b.shape, name
+            diff = np.abs(a.astype(int) - b.astype(int))
+            if "poisson" in name:
+                assert diff.max() <= 1, name
+            px = diff.reshape(a.shape[0], a.shape[1], -1).max(-1)
+            assert np.mean(px > 0) <= 1e-3, (name, np.mean(px > 0))
+        elif name.endswith(".mp4"):
+            caps = [cv2.VideoCapture(str(d / name)) for d in (got_dir,
+                                                              want_dir)]
+            n, shape = zip(*((c.get(cv2.CAP_PROP_FRAME_COUNT),
+                              (c.get(cv2.CAP_PROP_FRAME_HEIGHT),
+                               c.get(cv2.CAP_PROP_FRAME_WIDTH)))
+                             for c in caps))
+            for c in caps:
+                c.release()
+            assert n[0] == n[1] > 0 and shape[0] == shape[1], (name, n, shape)
+    return got
+
+
+def _assert_flows_close(got, want, n_frames):
+    for i in range(n_frames):
+        g = np.load(got / f"pred_flow{i}.npy")
+        w = np.load(want / f"pred_flow{i}.npy")
+        assert g.dtype == w.dtype and g.shape == w.shape == (2, 64, 96)
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-6)
+        assert np.array_equal(np.signbit(g), np.signbit(w))
+    assert not (got / f"pred_flow{n_frames}.npy").exists()
 
 
 def _lines(path):
@@ -86,29 +153,105 @@ def _assert_texts_close(got_dir, want_dir, names, rtol):
                 assert abs(g[k] - w[k]) <= rtol * abs(w[k]), (name, k, g, w)
 
 
-@pytest.mark.parametrize("data", [
-    {},
-    {"n_events_per_batch": 2500, "max_time_per_event_batch": 0.02,
-     "remove_nose": True},
-], ids=["plain", "rebalanced"])
-def test_port_cli_matches_jax_cli(tmp_path, monkeypatch, data):
+@pytest.mark.parametrize("data,visualize", [
+    ({}, False),
+    ({"n_events_per_batch": 2500, "max_time_per_event_batch": 0.02,
+      "remove_nose": True}, False),
+    ({}, True),
+    ({"n_events_per_batch": 2500, "max_time_per_event_batch": 0.02,
+      "remove_nose": True}, True),
+], ids=["plain", "rebalanced", "visualize", "visualize_rebalanced"])
+def test_port_cli_matches_jax_cli(tmp_path, monkeypatch, data, visualize):
+    """``visualize``: the config has no ``visualize`` key (the default, as
+    in the shipped configs), two frames."""
     cfg = small_config(flow_convention="physical")
     cfg["data"].update(data)
     cfg["evaluation"]["metrics"] = ["flow", "fwl"]
+    n_frames = 3
+    if visualize:
+        del cfg["visualize"]
+        cfg["evaluation"]["time_list"] = [[0.01, 0.15]]
+        n_frames = 2
     init = pyramid_init(cfg)
     inject_init(monkeypatch, tfacades, init)
     inject_init(monkeypatch, jfacades, init)
     got = _run_port(tmp_path, "torch", cfg)
-    argv, want = _write(tmp_path, "jax", cfg)
-    assert jcli.main(argv) == 0
+    want = _run_jax(tmp_path, dict(cfg, pipeline=True) if visualize else cfg)
     _assert_texts_close(got, want, TEXTS + ("fwl_per_frame.txt",), 1e-6)
-    assert [f for f, _ in _lines(got / TEXTS[0])] == [0, 1, 2]
-    for i in range(3):
-        g = np.load(got / f"pred_flow{i}.npy")
-        w = np.load(want / f"pred_flow{i}.npy")
-        assert g.dtype == w.dtype and g.shape == w.shape == (2, 64, 96)
-        np.testing.assert_allclose(g, w, rtol=0, atol=1e-6)
-        assert np.array_equal(np.signbit(g), np.signbit(w))
+    assert [f for f, _ in _lines(got / TEXTS[0])] == list(range(n_frames))
+    _assert_flows_close(got, want, n_frames)
+    if visualize:
+        names = _assert_artifacts_close(tmp_path, got, want)
+        for prefix in ("original", "original_filter", "pred_flow",
+                       "pred_flow_poisson", "pred_masked", "gt_flow",
+                       "gt_flow_poisson", "gt_masked", "flow_comparison_pred",
+                       "flow_comparison_gt", "optimization_steps"):
+            assert f"{prefix}1.png" in names, prefix
+        assert "color_wheel.png" in names
+
+
+@pytest.mark.parametrize("top,argv_eval", [
+    ({"method": "opencv_flow_two_steps"}, True),
+    ({"run_mode": "accumulate"}, False),
+    ({}, False),
+    ({"run_mode": "sequential_estimate"}, False),
+], ids=["two_step_gt", "accumulate", "sequential", "sequential_estimate"])
+def test_port_run_modes_match_jax_cli(tmp_path, monkeypatch, top, argv_eval):
+    """The visualizing run modes on the default ``visualize``: the
+    two-step Farnebäck GT in the evaluation loop (its uint8 Poisson views
+    and flow equal JAX's bit for bit on this scene), and, without
+    ``--eval``, the accumulated polarity images, the sequential event
+    images, and the sequential solve (three 10 ms windows)."""
+    cfg = small_config(**top)
+    del cfg["visualize"]
+    cfg["evaluation"]["time_list"] = ([[0.01, 0.15]] if argv_eval
+                                      else [[0.01, 0.04]])
+    init = pyramid_init(cfg)
+    inject_init(monkeypatch, tfacades, init)
+    inject_init(monkeypatch, jfacades, init)
+    got = _run_port(tmp_path, "torch", cfg, argv_eval)
+    want = _run_jax(tmp_path, dict(cfg, pipeline=True) if argv_eval else cfg,
+                    argv_eval)
+    names = _assert_artifacts_close(tmp_path, got, want)
+    if argv_eval:
+        _assert_texts_close(got, want, TEXTS, 1e-6)
+        _assert_flows_close(got, want, 2)
+        assert "gt_flow_poisson1.png" in names
+        return
+    assert ((got / "timestamps_per_frame.txt").read_text()
+            == (want / "timestamps_per_frame.txt").read_text())
+    want_names = {"accumulate": ["orig2.png", "filter2.png"],
+                  "sequential": ["original2.png", "original_filter2.png",
+                                 "original.mp4"],
+                  "sequential_estimate": ["pred_flow2.npy",
+                                          "pred_masked2.png"]}
+    for name in want_names[top.get("run_mode", "sequential")]:
+        if name.endswith(".mp4") and not _has_codec(tmp_path):
+            continue
+        assert name in names, name
+    if top.get("run_mode") == "sequential_estimate":
+        _assert_flows_close(got, want, 3)
+
+
+def test_debug_nans(tmp_path, monkeypatch):
+    """``debug_nans``: the same outputs when every value is finite; a NaN in
+    a frame's flow raises ``FloatingPointError``."""
+    cfg = small_config(debug_nans=True)
+    cfg["evaluation"]["time_list"] = [[0.01, 0.11]]
+    plain = _run_port(tmp_path, "plain", dict(cfg, debug_nans=False))
+    checked = _run_port(tmp_path, "checked", cfg)
+    assert (np.load(plain / "pred_flow0.npy").tobytes()
+            == np.load(checked / "pred_flow0.npy").tobytes())
+    orig = tfacades.estimate_frame
+
+    def nan_flow(*args, **kwargs):
+        flow, aux = orig(*args, **kwargs)
+        return flow * float("nan"), aux
+
+    monkeypatch.setattr(tfacades, "estimate_frame", nan_flow)
+    argv, _out = _write(tmp_path, "nan", cfg)
+    with pytest.raises(FloatingPointError, match="frame 0"):
+        tcli.main(argv, device="cpu")
 
 
 def test_pipeline_is_bit_identical_to_sync(tmp_path):
@@ -171,11 +314,8 @@ def test_contrast_maximization_cli_writes_parsable_texts(tmp_path):
 
 @pytest.mark.parametrize("top,argv_eval,match", [
     ({"mesh": {"data": 1, "event": 1}}, True, "#15"),
-    ({"visualize": True}, True, "#10b"),
-    ({"estimation_method": "openpiv"}, True, "#10b"),
-    ({}, False, "#10b"),
-    ({"method": "opencv_flow_two_steps"}, True, "#10b"),
-    ({"method": "openpiv"}, True, "#14"),
+    ({"estimation_method": "openpiv"}, True, "#14b"),
+    ({"method": "openpiv"}, True, "#14b"),
 ])
 def test_options_not_ported_raise(tmp_path, top, argv_eval, match):
     argv, _out = _write(tmp_path, "x", small_config(**top))

@@ -286,17 +286,57 @@ def test_model_frame_modes():
         solv._model_frame({"frame": frame})
 
 
-def test_visualize_methods_need_no_visualizer():
+def test_visualize_methods_need_no_visualizer(tmp_path):
+    """Without a visualizer the ``visualize_*`` methods do nothing; with
+    one they write the JAX facade's files, pixel for pixel (the Poisson
+    views, made on the device, within 1 LSB)."""
     solv = _build(_config(), "torch")
     names = ["visualize_original_sequential", "visualize_pred_sequential",
              "visualize_gt_sequential", "visualize_flows",
              "visualize_one_batch_warp", "visualize_one_batch_warp_gt"]
     for name in names:
         assert getattr(solv, name)(None, None) is None
-    solv.visualizer = object()
-    for name in names:
-        with pytest.raises(NotImplementedError, match="#10b"):
-            getattr(solv, name)(None, None)
+    import cv2
+
+    import event_based_bos_tpu.visualizer as jviz
+    import event_based_bos_tpu_torch.visualizer as tviz
+
+    cfg = _config("synthetic_cmax")
+    (events, _frame), = _windows(cfg, 1)
+    rng = np.random.default_rng(4)
+    flow = rng.normal(0, 0.4, (2, H, W)).astype(np.float32)
+    gt = rng.normal(0, 0.4, (2, H, W))
+    for tag, vis in (("torch", tviz.Visualizer((H, W), save_dir=str(
+            tmp_path / "torch"), device=CPU)),
+                     ("jax", jviz.Visualizer((H, W), save_dir=str(
+                         tmp_path / "jax")))):
+        s = _build(cfg, tag)
+        s.visualizer = vis
+        filtered, _ = s.preprocess(events)
+        s.visualize_original_sequential(events, filtered)
+        s.visualize_pred_sequential(filtered, flow)
+        s.visualize_gt_sequential(filtered, gt)
+        s.visualize_flows(flow, gt)
+        s.visualize_one_batch_warp(filtered)
+        s.visualize_one_batch_warp(filtered, warp=flow)
+        s.visualize_one_batch_warp_gt(filtered, gt.transpose(1, 2, 0))
+        assert s.sequential_video_list == [
+            "original", "original_filter", "pred_flow", "pred_flow_poisson",
+            "pred_masked", "gt_flow", "gt_flow_poisson", "gt_masked"]
+    files = sorted(p.name for p in (tmp_path / "torch").iterdir())
+    assert files == sorted(p.name for p in (tmp_path / "jax").iterdir())
+    assert "pred_flow0.npy" in files and "image3.png" in files
+    for name in files:
+        if name.endswith(".mp4"):  # streams still open: no video yet
+            continue
+        if name.endswith(".npy"):
+            np.testing.assert_array_equal(np.load(tmp_path / "torch" / name),
+                                          np.load(tmp_path / "jax" / name))
+            continue
+        a, b = (cv2.imread(str(tmp_path / t / name), cv2.IMREAD_UNCHANGED)
+                for t in ("torch", "jax"))
+        diff = np.abs(a.astype(int) - b.astype(int)).max()
+        assert diff <= (1 if "poisson" in name else 0), (name, diff)
 
 
 def test_entry_points_default_to_the_gpu():
