@@ -100,9 +100,35 @@ failure:
    at 40 iterations from the pinned init on the scene of
    ``tests/goldens/pyramid_720x1280_ref_flow.npy`` (the original
    reference's flow), over the ROI: MSE < 2e-2 and correlation > 0.95,
-   printed beside the JAX package's measured 9.9e-3 / 0.972.
+   printed beside the JAX package's measured 9.9e-3 / 0.972;
+9. the pyramid's modes at full width on phase 4's workload, spec and
+   seed: the first loss of each mode's objective within 1e-2 of the
+   full-frame float32 one's from the same init; ``restrict_to_roi``
+   (outside-norm stride 4) — a warm-up and three timed frames,
+   bit-identical, EPE < 0.30 px, one vote launch a frame, ms/frame printed
+   beside phase 4's —; one frame each of ``restrict_to_roi`` with
+   ``compute_dtype: bfloat16`` and of ``warp_compute_bf16`` alone (EPE <
+   0.30 px); each flow's correlation with the float32 flow printed, with
+   no limit (the 770-step solve decorrelates under any perturbation, the
+   JAX package's as well); small float64 restricted scenes on the card
+   and on the CPU within 1e-6, at a full-height and a four-sided ROI;
+   ``n_restarts = 3`` at 60 iterations, whose flow must equal bit for bit
+   the best of three single solves from the same generator draws, with
+   one vote launch;
+10. the CCS loop: the port's synthetic scene at 720×1280 (523,264 events
+   a frame) written under ``build/chip_smoke_ccs/`` in the CCS layout of
+   ``configs/hot_plate1.yaml``'s sequence (raw EVT3 always, HDF5 too where
+   ``h5py`` imports; ``frames.mp4`` through cv2's ``mp4v``; a
+   non-identity homography), then ``cli.main([..., "--eval"])`` on a copy
+   of ``configs/hot_plate1.yaml`` with only ``data.root``, ``output_dir``
+   and ``time_list`` changed, two frames each: on EVT3, on HDF5, and on
+   EVT3 with ``filters: [BAF, HOT]``.  The native runtime must have built
+   (``g++``); finite error texts, +0.0 outside the ROI, three vote
+   launches a frame (the visualizing loop), and the EVT3 flows equal to
+   the HDF5 flows bit for bit where both ran.
 
-Prints a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
+Prints the whole run's seconds, a ``kernels`` JSON line, the
+``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
 when there is no GPU or the port is missing.
 """
@@ -822,7 +848,7 @@ def run_main_path(events, frame, gt_flow, device):
     assert f"{epe:.4f}" == PYRAMID_EPE, f"EPE {epe!r} moved from {PYRAMID_EPE}"
     assert repeatable, "the same frame and seed gave different flows"
     assert epe < EPE_LIMIT, f"EPE {epe:.4f} px ≥ {EPE_LIMIT}"
-    return launches
+    return launches, flow_np, statistics.median(frame_ms)
 
 
 def cmax_epe(flow, gt_flow):
@@ -1730,12 +1756,426 @@ def check_golden(device):
             "jax_mse": meta["flow_mse"], "jax_corr": meta["flow_corr"]}
 
 
+def flow_corr(a, b):
+    """Correlation of two flows over the ROI."""
+    import numpy as np
+
+    x0, x1, y0, y1 = ROI
+    a = np.asarray(a, np.float64)[:, x0:x1, y0:y1].ravel()
+    b = np.asarray(b, np.float64)[:, x0:x1, y0:y1].ravel()
+    return float(np.corrcoef(a, b)[0, 1])
+
+
+RESTART_ITERS = 60
+N_RESTARTS = 3
+
+
+def run_pyramid_modes(events, frame, gt_flow, main_flow, main_ms, device):
+    """Phase 9: the pyramid's modes at full width on phase 4's workload,
+    spec and seed: ``restrict_to_roi`` (stride 4; a warm-up and three timed
+    frames, beside phase 4's ms/frame), with ``compute_dtype: bfloat16``,
+    ``warp_compute_bf16`` alone, and ``n_restarts = 3`` at 60 iterations
+    against the best of three single solves from the same draws."""
+    import dataclasses
+
+    import torch
+
+    from event_based_bos_tpu_torch import events_from_ndarray, kernels
+    from event_based_bos_tpu_torch.solver import GenerativeSpec, PyramidSpec
+    from event_based_bos_tpu_torch.solver.generative import (
+        initialize_params, iwe_cache)
+    from event_based_bos_tpu_torch.solver.pyramid import (estimate_frame,
+                                                          pyramid_grids,
+                                                          restart_scores,
+                                                          roi_mask)
+
+    dev = torch.device(device)
+    gen = GenerativeSpec(image_size=(H, W), iwe_sigma=2.0,
+                         weight_by_inverse_event_hist=True,
+                         optimize_warp=True, poisson_model=True)
+    full = PyramidSpec(gen=gen, roi=ROI, coarsest_patch=64, finest_patch=8,
+                       n_iter=N_ITER)
+    ev = events_from_ndarray(events, capacity=CAPACITY, device=dev)
+    frame_t = torch.as_tensor(frame, dtype=torch.float32, device=dev)
+    mask = torch.as_tensor(roi_mask(full), device=dev)
+
+    def solve(spec, seed=0, init=None):
+        cache = iwe_cache(ev, spec.gen)
+        return estimate_frame(None, frame_t, mask,
+                              torch.Generator(dev).manual_seed(seed), spec,
+                              init_params=init, cache=cache, device=dev)
+
+    restricted = dataclasses.replace(full, restrict_to_roi=True,
+                                     roi_norm_stride=4)
+    bf16 = dataclasses.replace(restricted, gen=dataclasses.replace(
+        gen, compute_dtype=torch.bfloat16))
+    warp_bf16 = dataclasses.replace(full, gen=dataclasses.replace(
+        gen, warp_compute_bf16=True))
+
+    # each mode's objective against the full-frame float32 one at the same
+    # start: the first loss of a short solve from the same init
+    first = {}
+    for name, spec in (("full", full), ("restricted", restricted),
+                       ("restricted + bfloat16", bf16),
+                       ("warp_compute_bf16", warp_bf16)):
+        _flow, aux = solve(dataclasses.replace(spec, n_iter=5))
+        first[name] = float(aux["loss_history"][0][0])
+    gaps = {name: abs(v - first["full"]) / first["full"]
+            for name, v in first.items() if name != "full"}
+    print(f"pyramid modes: first loss from the same init {first}; relative "
+          f"gap to the full-frame float32 objective "
+          f"{ {k: float(f'{v:.3e}') for k, v in gaps.items()} } (limit 1e-2)")
+    assert all(v <= 1e-2 for v in gaps.values()), gaps
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    solve(restricted)
+    torch.cuda.synchronize()
+    frame_ms, flows = [], []
+    for _ in range(3):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        flow, _aux = solve(restricted)
+        e.record()
+        e.synchronize()
+        frame_ms.append(s.elapsed_time(e))
+        flows.append(flow)
+    votes = kernels.launches["hat_vote_image"]
+    repeatable = all(torch.equal(f, flows[0]) for f in flows[1:])
+    r_flow = flows[0].cpu().numpy()
+    r_epe = accuracy_epe(r_flow, gt_flow)
+    r_corr = flow_corr(r_flow, main_flow)
+    r_ms = statistics.median(frame_ms)
+    # the correlation with another mode's flow from one init is printed
+    # with no limit: over 770 Adam steps any perturbation decorrelates the
+    # flows (the JAX package's own restricted and full solves at this
+    # size: 0.58 on the CPU), while the EPE stays
+    print(f"pyramid modes: restrict_to_roi (stride 4) {r_ms:.1f} ms/frame "
+          f"(frames {', '.join(f'{t:.1f}' for t in frame_ms)}) beside phase "
+          f"4's {main_ms:.1f}, EPE {r_epe:.4f} px ({r_epe!r}), correlation "
+          f"with phase 4's flow {r_corr:.5f}, vote launches {votes} in 4 "
+          f"frames, timed frames bit-identical {repeatable}")
+    check_flow(r_flow)
+    assert repeatable, "the restricted frames differ"
+    assert votes == 4, f"{votes} vote launches in 4 restricted frames"
+    assert r_epe < EPE_LIMIT, f"restricted EPE {r_epe:.4f} ≥ {EPE_LIMIT}"
+    results = {"restricted_ms": r_ms, "main_ms": main_ms}
+
+    for name, spec, ref_flow in (
+            ("restrict_to_roi + bfloat16", bf16, r_flow),
+            ("warp_compute_bf16", warp_bf16, main_flow)):
+        kernels.reset_launches()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        flow, aux = solve(spec)
+        e.record()
+        e.synchronize()
+        flow_np = flow.cpu().numpy()
+        epe = accuracy_epe(flow_np, gt_flow)
+        corr = flow_corr(flow_np, ref_flow)
+        print(f"pyramid modes: {name} {s.elapsed_time(e):.1f} ms (one "
+              f"frame), EPE {epe:.4f} px ({epe!r}), correlation "
+              f"with the float32 flow {corr:.5f}, vote launches "
+              f"{kernels.launches['hat_vote_image']}, flow "
+              f"{flow.dtype}, parameters {aux['params_per_scale'][-1].dtype}")
+        check_flow(flow_np)
+        assert kernels.launches["hat_vote_image"] == 1
+        assert flow.dtype == torch.float32
+        assert epe < EPE_LIMIT, f"{name}: EPE {epe:.4f} ≥ {EPE_LIMIT}"
+        results[name] = s.elapsed_time(e)
+    check_small_restricted(device)
+
+    # the multi-start from one generator against the best of the single
+    # solves from the same three draws
+    multi = dataclasses.replace(full, n_iter=RESTART_ITERS,
+                                n_restarts=N_RESTARTS)
+    kernels.reset_launches()
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s.record()
+    flow, aux = solve(multi, seed=1)
+    e.record()
+    e.synchronize()
+    m_votes = kernels.launches["hat_vote_image"]
+    g = torch.Generator(dev).manual_seed(1)
+    inits = [initialize_params(g, pyramid_grids(multi)[0].shape, gen, dev)
+             for _ in range(N_RESTARTS)]
+    single = dataclasses.replace(multi, n_restarts=1)
+    lanes = [solve(single, init=x0) for x0 in inits]
+    scores = restart_scores(lanes, single.track_best).cpu().tolist()
+    best = min(range(N_RESTARTS), key=lambda i: (scores[i], i))
+    same = torch.equal(flow, lanes[best][0])
+    print(f"pyramid modes: n_restarts {N_RESTARTS} at {RESTART_ITERS} "
+          f"iterations {s.elapsed_time(e):.1f} ms, lane scores "
+          f"{[round(v, 6) for v in scores]}, best lane {best}, flow "
+          f"bit-identical to that lane's single solve {same}, vote launches "
+          f"{m_votes}")
+    assert m_votes == 1, f"{m_votes} vote launches in one multi-start frame"
+    assert same, "the multi-start flow is not its best lane's"
+    results["votes"] = votes + 2 + m_votes
+    results["multistart_ms"] = s.elapsed_time(e)
+    return results
+
+
+def check_small_restricted(device):
+    """Phase 9: small float64 restricted solves on the card and on the CPU
+    must agree, at an ROI of the full height and at one open on all four
+    sides."""
+    import numpy as np
+    import torch
+
+    from event_based_bos_tpu_torch import events_from_ndarray
+    from event_based_bos_tpu_torch.data.synthetic import (SyntheticBosConfig,
+                                                          generate_sequence)
+    from event_based_bos_tpu_torch.solver import GenerativeSpec, PyramidSpec
+    from event_based_bos_tpu_torch.solver.pyramid import (estimate_frame,
+                                                          roi_mask)
+
+    seq = generate_sequence(SyntheticBosConfig(
+        height=64, width=96, duration=1.0 / 30.0, fps=30.0,
+        events_per_frame=2000, max_displacement=3.0, plume_speed=300.0))
+    gen = GenerativeSpec(image_size=(64, 96), dtype=torch.float64)
+    init = np.zeros((3, 4, 6))
+    init[0] = np.random.default_rng(0).uniform(-1, 1, (4, 6))
+    errs = []
+    for roi in ((0, 64, 16, 80), (12, 52, 20, 76)):
+        spec = PyramidSpec(gen=gen, roi=roi, coarsest_patch=16,
+                           finest_patch=8, n_iter=24, restrict_to_roi=True)
+        flows = []
+        for dev in (device, "cpu"):
+            ev = events_from_ndarray(seq["events"], capacity=4096,
+                                     device=dev)
+            flow, _ = estimate_frame(ev, seq["frames"][1], roi_mask(spec),
+                                     None, spec, init_params=init,
+                                     device=dev)
+            flows.append(flow.cpu())
+        errs.append(float((flows[0] - flows[1]).abs().max()))
+    print(f"pyramid modes: small float64 restricted scenes, card vs CPU: "
+          f"max|flow diff| {errs[0]:.3e} (full-height ROI), {errs[1]:.3e} "
+          f"(four-sided ROI) (limit 1e-6)")
+    assert max(errs) <= 1e-6, errs
+
+
+def check_flow(flow):
+    """A full-frame flow: finite, exactly +0.0 outside the ROI."""
+    import numpy as np
+
+    outside = np.ones((H, W), bool)
+    outside[ROI[0]:ROI[1], ROI[2]:ROI[3]] = False
+    assert flow.shape == (2, H, W) and np.isfinite(flow).all()
+    assert (flow[:, outside] == 0).all(), "nonzero flow outside the ROI"
+    assert not np.signbit(flow[:, outside]).any(), "−0.0 outside the ROI"
+    assert np.abs(flow[:, ~outside]).max() > 0
+
+
+CCS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke_ccs")
+CCS_DURATION = 0.2
+CCS_TIME_LIST = [[0.03, 0.15]]
+CCS_HOMOGRAPHY = ((1.01, 0.004, -3.0), (0.002, 0.99, 2.5), (2e-6, 0.0, 1.0))
+
+
+def evt3_words(x, y, t_us, p):
+    """A Prophesee EVT3 word stream of time-sorted events (sensor x =
+    column, y = row, µs, polarity), vectorized: per event TIME_HIGH (0x8)
+    and TIME_LOW (0x6) where they change, ADDR_Y (0x0) on a row change and
+    one ADDR_X (0x2, bit 11 = polarity)."""
+    import numpy as np
+
+    t = np.asarray(t_us, np.int64)
+    assert t.max() < (1 << 24)
+    th, tl = (t >> 12) & 0xFFF, t & 0xFFF
+    y = np.asarray(y, np.int64)
+    c_h = th != np.r_[0, th[:-1]]
+    c_l = tl != np.r_[0, tl[:-1]]
+    c_y = y != np.r_[-1, y[:-1]]
+    counts = 1 + c_h.astype(np.int64) + c_l + c_y
+    pos = 2 + np.cumsum(counts) - counts
+    words = np.empty(2 + int(counts.sum()), np.uint16)
+    words[:2] = (0x8 << 12, 0x6 << 12)
+    for flag, word in ((c_h, (0x8 << 12) | th), (c_l, (0x6 << 12) | tl),
+                       (c_y, y)):
+        words[pos[flag]] = word[flag]
+        pos = pos + flag
+    words[pos] = ((0x2 << 12) | (np.asarray(p, np.int64) << 11)
+                  | np.asarray(x, np.int64))
+    return words
+
+
+def write_ccs_recording(root, formats):
+    """The port's synthetic scene at 720×1280 with ``bench.py``'s events a
+    frame, in the CCS layout of ``configs/hot_plate1.yaml``'s sequence
+    under ``root/<format>/CCS/hot_plate1``: events as a raw EVT3 capture
+    and/or HDF5, trigger edges, a non-identity homography, ``frames.mp4``
+    (``mp4v``).  Returns ``{format: data root}``."""
+    import shutil
+
+    import cv2
+    import numpy as np
+
+    from event_based_bos_tpu_torch.data.synthetic import (SyntheticBosConfig,
+                                                          generate_sequence)
+
+    seq = generate_sequence(SyntheticBosConfig(
+        height=H, width=W, duration=CCS_DURATION, fps=30.0,
+        events_per_frame=CAPACITY - 1024, max_displacement=3.0, seed=0))
+    ev = seq["events"]
+    ev = ev[np.argsort(ev[:, 2], kind="stable")]
+    xs, ys = ev[:, 1].astype(np.int16), ev[:, 0].astype(np.int16)
+    ts = (ev[:, 2] * 1e6).astype(np.int32)
+    ps = ev[:, 3] > 0
+    roots = {}
+    for fmt in formats:
+        shutil.rmtree(os.path.join(root, fmt), ignore_errors=True)
+        data_root = os.path.join(root, fmt, "datasets")
+        d = os.path.join(data_root, "CCS", "hot_plate1")
+        os.makedirs(os.path.join(d, "prophesee_0"))
+        os.makedirs(os.path.join(d, "basler_0"))
+        if fmt == "hdf5":
+            import h5py
+
+            with h5py.File(os.path.join(d, "prophesee_0", "events.hdf5"),
+                           "w") as f:
+                g = f.create_group("raw_events")
+                for k, v in (("x", xs), ("y", ys), ("t", ts), ("p", ps)):
+                    g.create_dataset(k, data=v)
+        else:
+            with open(os.path.join(d, "prophesee_0", "cd_events.raw"),
+                      "wb") as f:
+                f.write(b"% evt 3.0\n% end\n")
+                f.write(evt3_words(xs, ys, ts, ps).tobytes())
+        ft = seq["frame_ts"]
+        np.savetxt(os.path.join(d, "prophesee_0", "trigger_events.txt"),
+                   np.stack([(ft * 1e6).astype(int), np.zeros(len(ft), int),
+                             np.ones(len(ft), int)], 1), fmt="%d")
+        np.savetxt(os.path.join(d, "homography.txt"),
+                   np.asarray(CCS_HOMOGRAPHY))
+        vw = cv2.VideoWriter(os.path.join(d, "basler_0", "frames.mp4"),
+                             cv2.VideoWriter_fourcc(*"mp4v"), 30, (W, H))
+        assert vw.isOpened(), "no mp4v codec for the recording"
+        for fr in seq["frames"]:
+            vw.write(cv2.cvtColor(fr.astype(np.uint8), cv2.COLOR_GRAY2BGR))
+        vw.release()
+        roots[fmt] = data_root
+    return roots, len(ev)
+
+
+def hot_plate_copy(root, out_dir, filters=None):
+    """``configs/hot_plate1.yaml`` with only ``data.root``, ``output_dir``
+    and ``time_list`` changed (and, for the second run, the filter list),
+    written beside its outputs."""
+    import yaml
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(repo, "configs", "hot_plate1.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["data"]["root"] = root
+    cfg["output_dir"] = out_dir
+    cfg["evaluation"]["time_list"] = CCS_TIME_LIST
+    if filters is not None:
+        cfg["solver"]["filter"]["filters"] = filters
+    path = out_dir.rstrip("/") + ".yaml"
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def run_ccs(device):
+    """Phase 10: ``cli.main(["--config_file", ..., "--eval"])`` on a copy of
+    ``configs/hot_plate1.yaml`` over a full-width CCS recording, EVT3
+    (and HDF5 where ``h5py`` imports), then with ``filters: [BAF, HOT]``."""
+    import importlib.util
+    import logging
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from event_based_bos_tpu_torch import cli, kernels, runtime
+    from event_based_bos_tpu_torch.data import ccs
+    from event_based_bos_tpu_torch.utils import read_flow_error_text
+
+    t0 = time.perf_counter()
+    native = runtime.available()
+    print(f"ccs: native runtime {native} ({runtime.library_path()})")
+    assert native, "the native runtime did not build"
+    formats = ["evt3"] + (["hdf5"] if importlib.util.find_spec("h5py")
+                          else [])
+    roots, n_events = write_ccs_recording(CCS_DIR, formats)
+    print(f"ccs: recording {H}x{W}, {n_events} events as {formats} "
+          f"({time.perf_counter() - t0:.1f} s to write)")
+    sources = []
+    set_sequence = ccs.CcsDataLoader.set_sequence
+
+    def recorded(self, *args, **kwargs):
+        set_sequence(self, *args, **kwargs)
+        sources.append(self.event_source)
+
+    ccs.CcsDataLoader.set_sequence = recorded
+    root_log = logging.getLogger()
+    handlers, level = root_log.handlers[:], root_log.level
+    runs = {}
+    try:
+        for tag, fmt, filters in (("evt3", "evt3", None),
+                                  ("hdf5", "hdf5", None),
+                                  ("evt3_baf_hot", "evt3", ["BAF", "HOT"])):
+            if fmt not in roots:
+                continue
+            out = os.path.join(CCS_DIR, "out_" + tag)
+            shutil.rmtree(out, ignore_errors=True)
+            path = hot_plate_copy(roots[fmt], out, filters)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t1 = time.perf_counter()
+            rc = cli.main(["--config_file", path, "--eval", "--log",
+                           "warning"], device=device)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            votes = kernels.launches["hat_vote_image"]
+            flows = sorted(n for n in os.listdir(out)
+                           if n.startswith("pred_flow") and n.endswith(".npy"))
+            epe = {}
+            for name in SERVE_TEXTS:
+                arrays, _stats = read_flow_error_text(os.path.join(out, name))
+                assert np.isfinite(arrays["EPE"]).all(), (tag, name)
+                epe[name] = [float(v) for v in arrays["EPE"]]
+            for name in flows:
+                check_flow(np.load(os.path.join(out, name)))
+            runs[tag] = (out, flows)
+            print(f"ccs: {tag}: rc {rc}, event route {sources[-1]}, "
+                  f"{len(flows)} frames in {wall:.1f} s "
+                  f"({1e3 * wall / max(len(flows), 1):.1f} ms/frame, the "
+                  f"visualizing loop), vote launches {votes}, EPE without / "
+                  f"with mask {epe[SERVE_TEXTS[0]]} / {epe[SERVE_TEXTS[1]]}")
+            assert rc == 0 and sources[-1] == fmt, (rc, sources)
+            assert len(flows) == 2, flows
+            assert votes == 3 * len(flows),                 f"{votes} vote launches in {len(flows)} visualizing frames"
+    finally:
+        ccs.CcsDataLoader.set_sequence = set_sequence
+        for h in root_log.handlers:
+            if h not in handlers:
+                h.close()
+        root_log.handlers[:] = handlers
+        root_log.setLevel(level)
+    if "hdf5" in runs:
+        same = all(np.array_equal(
+            np.load(os.path.join(runs["evt3"][0], n)),
+            np.load(os.path.join(runs["hdf5"][0], n)))
+            for n in runs["evt3"][1])
+        print(f"ccs: EVT3 flows bit-identical to HDF5 flows {same}")
+        assert same, "the EVT3 and HDF5 runs differ"
+    else:
+        print("ccs: h5py is not installed: EVT3 only")
+    print(f"ccs: phase {time.perf_counter() - t0:.1f} s")
+    return {"votes": sum(3 * len(f) for _o, f in runs.values())}
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from event_based_bos_tpu_torch import kernels
 
@@ -1766,7 +2206,8 @@ def main():
 
     entries = [check_vote_kernel(events, "cuda", atomic_lib)]
     entries += check_cmax_kernels(events, "cuda")
-    launches = run_main_path(events, frame, gt_flow, "cuda")
+    launches, main_flow, main_ms = run_main_path(events, frame, gt_flow,
+                                                 "cuda")
     entries[0]["launches"] = launches["hat_vote_image"]
     cmax_launches = run_cmax_path(events, gt_flow, "cuda")
     entries[0]["launches_cmax"] = cmax_launches["hat_vote_image"]
@@ -1787,7 +2228,13 @@ def main():
         entry["launches_visualize_cmax"] = visualize["cmax"]["launches"][
             entry["name"]]
     check_golden("cuda")
+    modes = run_pyramid_modes(events, frame, gt_flow, main_flow, main_ms,
+                              "cuda")
+    entries[0]["launches_pyramid_modes"] = modes["votes"]
+    ccs = run_ccs("cuda")
+    entries[0]["launches_ccs"] = ccs["votes"]
 
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": entries}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -22,6 +22,11 @@ __all__ = ["diff_norm", "flow_norm", "flow_norm_pxy", "image_gradient",
            "hybrid_cost"]
 
 
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """Reduction accumulator dtype: float32 for bfloat16 inputs."""
+    return torch.float32 if x.dtype == torch.bfloat16 else x.dtype
+
+
 def _safe_l2(v: torch.Tensor, dim: int = 0) -> torch.Tensor:
     """L2 norm with a zero subgradient at the origin.
 
@@ -29,7 +34,7 @@ def _safe_l2(v: torch.Tensor, dim: int = 0) -> torch.Tensor:
     which is the initial state of the translation field; the double
     ``where`` keeps the gradient there at 0.
     """
-    sq = torch.sum(v * v, dim=dim)
+    sq = torch.sum((v * v).to(_acc_dtype(v)), dim=dim)
     zero = sq == 0
     safe = torch.where(zero, 1.0, sq)
     return torch.where(zero, 0.0, torch.sqrt(safe))
@@ -40,7 +45,7 @@ def diff_norm(arg: dict) -> torch.Tensor:
     absolute column sum (sum over axis −2), not the entrywise L1.
     ``amax`` splits the gradient of tied columns evenly, as JAX's max."""
     d = abs_(arg["prediction"] - arg["measurement"])
-    return torch.amax(torch.sum(d, dim=-2))
+    return torch.amax(torch.sum(d.to(_acc_dtype(d)), dim=-2))
 
 
 def flow_norm(arg: dict) -> torch.Tensor:
@@ -65,6 +70,7 @@ def image_gradient(arg: dict) -> torch.Tensor:
         w = float(w)  # a Python number, not a host→device copy per call
     elif w.dim() == 0:
         w = w.expand(flow.shape[1:])
+    acc = _acc_dtype(flow)
     total = 0.0
     for axis in (1, 2):
         n = flow.shape[axis]
@@ -76,27 +82,54 @@ def image_gradient(arg: dict) -> torch.Tensor:
         upper = flow.narrow(axis, 2, n - 2)
         lower = flow.narrow(axis, 0, n - 2)
         total = total + torch.sum(abs_((upper - lower) * 0.5
-                                       * wsl(1, n - 1)))
+                                       * wsl(1, n - 1)).to(acc))
         first = flow.narrow(axis, 1, 1) - flow.narrow(axis, 0, 1)
         last = flow.narrow(axis, n - 1, 1) - flow.narrow(axis, n - 2, 1)
-        total = total + torch.sum(abs_(first * wsl(0, 1)))
-        total = total + torch.sum(abs_(last * wsl(n - 1, n)))
+        total = total + torch.sum(abs_(first * wsl(0, 1)).to(acc))
+        total = total + torch.sum(abs_(last * wsl(n - 1, n)).to(acc))
     return total / flow.numel()
 
 
 def total_variation(arg: dict) -> torch.Tensor:
-    """Anisotropic TV of the flow (forward differences)."""
+    """Anisotropic TV of the flow (forward differences).
+
+    ``arg["full_domain"] = (H, W)`` (set by the ROI-restricted solve)
+    evaluates the full-frame TV from the cropped field: every nonzero
+    difference lies inside the margin box (the masked flow is zero at and
+    beyond its edge), so only the divisors change, ``(H−1)·W`` for the
+    row differences and ``H·(W−1)`` for the column differences.
+    """
     flow = arg["flow"]
     dx = abs_(flow[..., 1:, :] - flow[..., :-1, :])
     dy = abs_(flow[..., :, 1:] - flow[..., :, :-1])
-    return torch.mean(dx) + torch.mean(dy)
+    full = arg.get("full_domain")
+    if full is None:
+        return torch.mean(dx) + torch.mean(dy)
+    h, w = full
+    lead = flow.numel() // (flow.shape[-2] * flow.shape[-1])
+    acc = _acc_dtype(flow)
+    return (torch.sum(dx.to(acc)) / (lead * (h - 1) * w)
+            + torch.sum(dy.to(acc)) / (lead * h * (w - 1)))
 
 
 def charbonnier(arg: dict, alpha: float = 0.45,
                 epsilon: float = 1e-3) -> torch.Tensor:
-    """Robust Charbonnier penalty of (prediction − measurement)."""
+    """Robust Charbonnier penalty of (prediction − measurement).
+
+    With ``arg["full_domain"] = (H, W)`` the full-frame mean is evaluated
+    from the cropped residual: each pixel outside the box adds the
+    constant ``ε^{2α}`` (zero gradient), in closed form.
+    """
     delta = arg["prediction"] - arg["measurement"]
-    return torch.mean((delta ** 2 + epsilon ** 2) ** alpha)
+    vals = (delta ** 2 + epsilon ** 2) ** alpha
+    full = arg.get("full_domain")
+    if full is None:
+        return torch.mean(vals)
+    h, w = full
+    n_full = vals.numel() // (vals.shape[-2] * vals.shape[-1]) * h * w
+    n_out = n_full - vals.numel()
+    return ((torch.sum(vals.to(_acc_dtype(vals)))
+             + n_out * epsilon ** (2 * alpha)) / n_full)
 
 
 def image_variance(arg: dict) -> torch.Tensor:

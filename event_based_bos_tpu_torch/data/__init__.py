@@ -1,13 +1,15 @@
 """Data sources of the port: the synthetic BOS generator and the dataset
 loaders, with the registry the CLI reads (``data.dataset`` in the YAML).
 
-Only the ``SYNTHETIC`` loader is ported; the recorded-dataset loaders
-(``CCS``, ``E2VID``, ``HELIUM``) are registered and raise
-``NotImplementedError`` until ROADMAP Queue 1 #14 ports them.
+The ``SYNTHETIC`` loader and the ``CCS`` recording loader (HDF5 or raw
+EVT3 events, mp4 frames) are ported; ``E2VID`` and ``HELIUM`` are
+registered and raise ``NotImplementedError`` until ROADMAP Queue 1 #14b
+ports them.
 """
 
 from . import synthetic  # noqa: F401
 from .base import DATASET_ROOT_DIR, DataLoaderBase  # noqa: F401
+from .ccs import CcsDataLoader
 from .synthetic import SyntheticBosConfig, generate_sequence  # noqa: F401
 from .synthetic_loader import SyntheticDataLoader
 
@@ -19,7 +21,7 @@ def _not_ported(name: str):
         def __init__(self, config=None):
             raise NotImplementedError(
                 f"the {name} data loader is not ported yet (ROADMAP Queue 1 "
-                f"#14); the port has the SYNTHETIC loader")
+                f"#14b); the port has the SYNTHETIC and CCS loaders")
 
     _NotPorted.__name__ = _NotPorted.__qualname__ = f"{name.title()}DataLoader"
     return _NotPorted
@@ -27,6 +29,6 @@ def _not_ported(name: str):
 
 collections = {
     cls.NAME: cls
-    for cls in (_not_ported("CCS"), _not_ported("E2VID"),
-                _not_ported("HELIUM"), SyntheticDataLoader)
+    for cls in (CcsDataLoader, _not_ported("E2VID"), _not_ported("HELIUM"),
+                SyntheticDataLoader)
 }

@@ -3,7 +3,7 @@
 PyTorch counterpart of the JAX package's ``ops/flow.py::
 calculate_flow_error``: the masked end-point error, the n-pixel outlier
 ratios and the angular error of the reference.  The rest of that module
-(voxel propagation, GT advection) is not ported yet (ROADMAP Queue 1 #14).
+(voxel propagation, GT advection) is not ported yet (ROADMAP Queue 1 #14b).
 """
 
 from __future__ import annotations

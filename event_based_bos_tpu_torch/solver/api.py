@@ -150,7 +150,7 @@ class SolverBase:
         if model_image == "e2vid":
             raise NotImplementedError(
                 "model_image: e2vid needs the E2VID loader, which is not "
-                "ported yet (ROADMAP Queue 1 #14)")
+                "ported yet (ROADMAP Queue 1 #14b)")
         self.flow_convention = self.slv_config.get("flow_convention",
                                                    "reference")
         self.normalize_t_in_batch = True

@@ -43,15 +43,19 @@ def _evolution_stride(solver_config, n_iter: int) -> int:
 def _generative_spec(orig_image_shape, solver_config, dtype
                      ) -> GenerativeSpec:
     """The generative model's spec from the ``generative_ml`` section and
-    the cost weights, with the JAX package's defaults."""
-    for key in ("compute_dtype", "warp_compute_bf16"):
-        if solver_config.get(key):
-            raise NotImplementedError(
-                f"{key} is not ported yet (ROADMAP Queue 1 #11)")
+    the cost weights, with the JAX package's defaults.  ``compute_dtype:
+    bfloat16`` or ``float32`` runs the objective's interior in that dtype
+    (``float32`` also at ``precision: 64``); any other value leaves it in
+    the solve's dtype."""
     g = solver_config.get("generative_ml", {})
     cw = solver_config.get("cost_with_weight", {"diff_norm": 1.0})
+    compute_dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+                     None: None}.get(solver_config.get("compute_dtype"))
     return GenerativeSpec(
         warp_stencil_radius=int(solver_config.get("warp_stencil_radius", 1)),
+        compute_dtype=compute_dtype,
+        warp_compute_bf16=bool(solver_config.get("warp_compute_bf16",
+                                                 False)),
         image_size=tuple(orig_image_shape),
         no_polarity=bool(g.get("no_polarity", False)),
         iwe_sigma=float(g.get("iwe_sigma", 0) or 0),
@@ -95,6 +99,14 @@ class PatchEkltPyramid2(SolverBase):
     fetched and the full frame rebuilt around it on the host (the solve
     writes exact +0.0 outside the ROI); ``handle.device_flow`` keeps the
     full-frame unoriented flow on the device for the error pair and FWL.
+
+    The options ``restrict_to_roi`` (``roi_margin``, ``roi_norm_stride``),
+    ``n_restarts`` (``restart_mode``), ``compute_dtype`` and
+    ``warp_compute_bf16`` are validated as in the JAX package.  With
+    ``n_restarts: R`` the facade's generator draws the R coarsest-scale
+    inits in lane order inside :meth:`estimate_async`, before the first
+    lane runs, so the pipelined loop stays bit-identical to the
+    synchronous one.
     """
 
     def __init__(self, *args, **kwargs):
@@ -114,24 +126,26 @@ class PatchEkltPyramid2(SolverBase):
             lr=float(opt.get("lr", 0.05)),
             lr_decay=float(opt.get("lr_decay", 0.1)),
             track_best=bool(self.slv_config.get("track_best", True)),
+            restrict_to_roi=bool(self.slv_config.get("restrict_to_roi",
+                                                     False)),
+            roi_margin=int(self.slv_config.get("roi_margin", 2)),
+            roi_norm_stride=int(self.slv_config.get("roi_norm_stride", 4)),
             record_evolution=_evolution_stride(self.slv_config,
                                                int(opt.get("n_iter", 600))),
             n_restarts=int(self.slv_config.get("n_restarts", 1)),
+            restart_mode=str(self.slv_config.get("restart_mode", "map")),
         )
         warm = bool(self.slv_config.get("warm_start"))
-        restart_mode = str(self.slv_config.get("restart_mode", "map"))
-        if restart_mode not in ("map", "vmap"):
+        if self.spec.restart_mode not in ("map", "vmap"):
             raise ValueError("restart_mode must be 'map' (sequential lanes, "
                              "~R× one solve) or 'vmap' (batched lanes), got "
-                             f"{restart_mode!r}")
-        restrict = bool(self.slv_config.get("restrict_to_roi", False))
-        roi_margin = int(self.slv_config.get("roi_margin", 2))
-        if restrict and roi_margin < 2:
+                             f"{self.spec.restart_mode!r}")
+        if self.spec.restrict_to_roi and self.spec.roi_margin < 2:
             raise ValueError(
                 "restrict_to_roi requires roi_margin >= 2 (got "
-                f"{roi_margin}): the full-frame cost equivalence needs the "
-                "ROI mask ridge and its difference stencil inside the "
-                "cropped box.")
+                f"{self.spec.roi_margin}): the full-frame cost equivalence "
+                "needs the ROI mask ridge and its difference stencil inside "
+                "the cropped box.")
         if self.spec.n_restarts > 1 and warm:
             raise ValueError("n_restarts > 1 is a cold-start feature; it "
                              "does not compose with warm_start (all "
@@ -158,12 +172,6 @@ class PatchEkltPyramid2(SolverBase):
             raise ValueError(
                 f"split_iwe_cache: unknown mode {sic!r} (expected 'auto', "
                 "false, 'scatter' or 'pallas')")
-        if restrict:
-            raise NotImplementedError(
-                "restrict_to_roi is not ported yet (ROADMAP Queue 1 #11)")
-        if self.spec.n_restarts > 1:
-            raise NotImplementedError(
-                "n_restarts > 1 is not ported yet (ROADMAP Queue 1 #11)")
         self._warm_start = warm
         self._mask = torch.as_tensor(roi_mask(self.spec), device=self.device)
         x0, x1, y0, y1 = self.spec.roi

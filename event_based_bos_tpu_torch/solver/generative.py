@@ -9,9 +9,18 @@ PyTorch counterpart of the JAX package's ``solver/generative.py``:
   * :func:`patch_to_dense` — patch grid → dense interpolation as two
     matmuls, with the operators built once per scale (:func:`dense_operators`)
     so the optimizer loop does no host→device copy;
+    :func:`patch_to_dense_indexed` evaluates it at chosen rows × columns;
+  * :func:`outside_norm_sq` — the prediction-norm correction from outside
+    the ROI box of the restricted objective;
   * :func:`predict_increment` — the generative model ``v·∇I`` with the
     per-pixel pattern-shift warp;
-  * :func:`dense_objective` — the full objective with the hybrid cost.
+  * :func:`dense_objective` — the full objective with the hybrid cost, over
+    the full frame or (``roi_crop``) the margin-expanded ROI box.
+
+``GenerativeSpec.compute_dtype`` runs the objective's interior (the field
+interpolation, the warp, the prediction) in another dtype, bfloat16 for
+speed, with float32 reductions; ``warp_compute_bf16`` runs only the warp in
+bfloat16.  The resize matmuls stay ``torch.matmul`` in that dtype.
 """
 
 from __future__ import annotations
@@ -35,17 +44,31 @@ from ..types import Events, PatchGrid
 
 __all__ = ["GenerativeSpec", "iwe_cache_from_votes", "iwe_cache",
            "measured_increment", "dense_operators", "patch_to_dense",
-           "patch_flow_of", "params_to_fields", "predict_increment",
-           "dense_objective", "initialize_params"]
+           "patch_to_dense_indexed", "outside_norm_sq", "patch_flow_of",
+           "params_to_fields", "predict_increment", "dense_objective",
+           "initialize_params"]
 
 NORM_EPS = 1e-4  # prediction L2-normalization epsilon
 
 
-def _safe_frobenius(x: torch.Tensor) -> torch.Tensor:
-    """Frobenius norm with a zero subgradient at an exactly-zero input."""
-    sq = torch.sum(x * x)
+def _safe_frobenius(x: torch.Tensor,
+                    extra_sq: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Frobenius norm (of ``x`` and, squared, ``extra_sq`` beside it) with a
+    zero subgradient at an exactly-zero input: the plain velocity model
+    starts at a prediction of exactly zero, and the restricted objective's
+    outside part is then zero too."""
+    acc = _acc_dtype(x)
+    sq = torch.sum((x * x).to(acc))
+    if extra_sq is not None:
+        sq = sq + extra_sq.to(acc)
     zero = sq == 0
-    return torch.where(zero, 0.0, torch.sqrt(torch.where(zero, 1.0, sq)))
+    return torch.where(zero, 0.0, torch.sqrt(torch.where(zero, 1.0, sq))
+                       ).to(x.dtype)
+
+
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """Reduction accumulator dtype: float32 for bfloat16 inputs."""
+    return torch.float32 if x.dtype == torch.bfloat16 else x.dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,9 +76,8 @@ class GenerativeSpec:
     """Static configuration of the generative model.
 
     Field meanings track the ``generative_ml`` YAML section.  The JAX
-    package's ``compute_dtype``, ``warp_compute_bf16`` and ``pallas_iwe``
-    are not here: the first two are not ported yet, and the vote's route
-    follows the tensor's device.
+    package's ``pallas_iwe`` is not here: the vote's route follows the
+    tensor's device.
     """
 
     image_size: Tuple[int, int]
@@ -78,6 +100,12 @@ class GenerativeSpec:
     # Static bound on the per-pixel pattern shift |pxy| (px) for the
     # gather-free stencil warp; 0 selects the gather warp.
     warp_stencil_radius: int = 1
+    # dtype of the objective's interior (field interpolation, gradient
+    # warp, prediction); reductions accumulate in float32 for bfloat16, and
+    # the parameters and optimizer state stay in ``dtype``.  None = dtype.
+    compute_dtype: Optional[torch.dtype] = None
+    # bfloat16 inside the pattern-shift warp stencil only
+    warp_compute_bf16: bool = False
 
     @property
     def param_dim(self) -> int:
@@ -169,7 +197,8 @@ def measured_increment(histogram: torch.Tensor,
 
 def dense_operators(grid: PatchGrid, dtype: torch.dtype, device,
                     out_size: Optional[Tuple[int, int]] = None,
-                    crop: Optional[Tuple[int, int, int, int]] = None):
+                    crop: Optional[Tuple[int, int, int, int]] = None,
+                    rows=None, cols=None):
     """The two interpolation operators ``(mh, mw_t)`` of
     :func:`patch_to_dense` for one grid.  Build them once per scale — each
     build copies from the host.
@@ -179,7 +208,9 @@ def dense_operators(grid: PatchGrid, dtype: torch.dtype, device,
     weights), so the dense field is two matmuls and nothing else.  Unlike a
     gather, whose backward scatters with atomics, the matmuls give the
     same gradient on every run.  ``out_size`` and ``crop`` select the
-    matrices' rows and columns, as in :func:`patch_to_dense`.
+    matrices' rows and columns, as in :func:`patch_to_dense`; ``rows`` and
+    ``cols`` (integer arrays of output positions) replace the crop's
+    ranges, as in :func:`patch_to_dense_indexed`.
     """
     gh, gw = grid.shape
     ph = int(grid.patch_size[0] / 2 // grid.stride[0]) + 1
@@ -190,15 +221,17 @@ def dense_operators(grid: PatchGrid, dtype: torch.dtype, device,
     h1 = up_h // 2 - out_h // 2
     w1 = up_w // 2 - out_w // 2
     x0, x1, y0, y1 = crop if crop is not None else (0, out_h, 0, out_w)
+    rows = np.arange(x0, x1) if rows is None else np.asarray(rows)
+    cols = np.arange(y0, y1) if cols is None else np.asarray(cols)
 
-    def folded(n, pad, up, first, last):
+    def folded(n, pad, up, index):
         src = np.clip(np.arange(-pad, n + pad), 0, n - 1)
         edge = np.zeros((n + 2 * pad, n))
         edge[np.arange(n + 2 * pad), src] = 1.0
-        return _resize_matrix_np(n + 2 * pad, up)[first:last] @ edge
+        return _resize_matrix_np(n + 2 * pad, up)[index] @ edge
 
-    mh = folded(gh, ph, up_h, h1 + x0, h1 + x1)
-    mw = folded(gw, pw, up_w, w1 + y0, w1 + y1)
+    mh = folded(gh, ph, up_h, h1 + rows)
+    mw = folded(gw, pw, up_w, w1 + cols)
     return tuple(torch.as_tensor(m).to(device=device, dtype=dtype)
                  for m in (mh, np.ascontiguousarray(mw.T)))
 
@@ -221,6 +254,46 @@ def patch_to_dense(field: torch.Tensor, grid: PatchGrid,
     return torch.matmul(torch.matmul(mh, field), mw_t)
 
 
+def patch_to_dense_indexed(field: torch.Tensor, grid: PatchGrid, row_idx,
+                           col_idx, operators=None) -> torch.Tensor:
+    """:func:`patch_to_dense` evaluated only at the image rows ``row_idx``
+    × columns ``col_idx`` (host integer arrays): the interpolation
+    matrices are sliced to exactly those output positions of the full
+    frame.  ``operators`` is :func:`dense_operators`' result for the same
+    grid and indices."""
+    mh, mw_t = operators or dense_operators(grid, field.dtype, field.device,
+                                            rows=row_idx, cols=col_idx)
+    return torch.matmul(torch.matmul(mh, field), mw_t)
+
+
+def outside_norm_sq(patch_flow: torch.Tensor, grid: PatchGrid,
+                    spec: GenerativeSpec, strips,
+                    operators=None) -> torch.Tensor:
+    """Squared prediction norm of the frame outside the ROI box, estimated
+    on decimated sample grids.
+
+    Each strip is ``(row_idx, col_idx, gxx, gxy, gyy, area_per_sample)``
+    with ``g**`` the frame-gradient products at those pixels (see
+    :func:`..pyramid._outside_strips`).  The prediction there is taken as
+    the unwarped model ``flow·∇I``, so ``Σ pred²`` is the quadratic form
+    ``fx²·gxx + 2·fx·fy·gxy + fy²·gyy`` of the interpolated flow.  The sum
+    accumulates in float32 when the interior is bfloat16.  ``operators``
+    holds one :func:`dense_operators` pair per strip.
+    """
+    if spec.compute_dtype is not None:
+        patch_flow = patch_flow.to(spec.compute_dtype)
+    acc = _acc_dtype(patch_flow)
+    total = torch.zeros((), dtype=acc, device=patch_flow.device)
+    for k, (row_idx, col_idx, gxx, gxy, gyy, area) in enumerate(strips):
+        f = patch_to_dense_indexed(
+            patch_flow, grid, row_idx, col_idx,
+            operators=None if operators is None else operators[k])
+        q = (f[0] * f[0] * gxx + 2.0 * f[0] * f[1] * gxy
+             + f[1] * f[1] * gyy)
+        total = total + area * torch.sum(q.to(acc))
+    return total
+
+
 def patch_flow_of(params: torch.Tensor, spec: GenerativeSpec) -> torch.Tensor:
     """Per-patch flow ``[2, gh, gw]`` from the joint parameter field."""
     if spec.poisson_model:
@@ -233,10 +306,13 @@ def patch_flow_of(params: torch.Tensor, spec: GenerativeSpec) -> torch.Tensor:
 def params_to_fields(params: torch.Tensor, grid: PatchGrid,
                      spec: GenerativeSpec,
                      patch_flow: Optional[torch.Tensor] = None,
-                     operators=None) -> Dict[str, torch.Tensor]:
+                     operators=None,
+                     crop: Optional[Tuple[int, int, int, int]] = None
+                     ) -> Dict[str, torch.Tensor]:
     """Unfold the joint parameter field ``[n_dim, gh, gw]`` to dense fields:
     ``flow`` ``[2, H, W]``, plus ``pxy`` (optimize_warp) and ``intensity``
-    (when a cost needs it), in one interpolation."""
+    (when a cost needs it), in one interpolation in ``spec.compute_dtype``
+    (over the ``crop`` box when given)."""
     if patch_flow is None:
         patch_flow = patch_flow_of(params, spec)
     fields = [patch_flow]
@@ -247,8 +323,10 @@ def params_to_fields(params: torch.Tensor, grid: PatchGrid,
     if spec.poisson_model and spec.needs_intensity:
         fields.append(params[0:1])
         names.append("intensity")
-    dense = patch_to_dense(torch.cat(fields, dim=0), grid,
-                           operators=operators)
+    stacked = torch.cat(fields, dim=0)
+    if spec.compute_dtype is not None:
+        stacked = stacked.to(spec.compute_dtype)
+    dense = patch_to_dense(stacked, grid, crop=crop, operators=operators)
     out: Dict[str, torch.Tensor] = {}
     pos = 0
     for name, f in zip(names, fields):
@@ -266,17 +344,27 @@ def predict_increment(flow: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
                       spec: GenerativeSpec,
                       pxy: Optional[torch.Tensor] = None,
                       weights: Optional[torch.Tensor] = None,
-                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      mask: Optional[torch.Tensor] = None,
+                      extra_norm_sq: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """Predicted brightness increment ``v·∇I``, L2-normalized (+eps).
 
     ``pxy`` (dense per-pixel translation) warps the gradients first — the
-    background-pattern distortion term.  The norm has a zero subgradient
-    at an all-zero prediction.
+    background-pattern distortion term.  ``extra_norm_sq`` adds the
+    squared norm from outside the computed box (:func:`outside_norm_sq`),
+    so the normalizer keeps its full-frame meaning.  The norm has a zero
+    subgradient at an all-zero prediction.
     """
     if spec.optimize_warp and pxy is not None:
         if spec.warp_stencil_radius > 0:
-            gxy = warp_image_stencil(torch.stack([gx, gy]), pxy,
-                                     spec.warp_stencil_radius)
+            stack = torch.stack([gx, gy])
+            if spec.warp_compute_bf16:
+                gxy = warp_image_stencil(
+                    stack.to(torch.bfloat16), pxy.to(torch.bfloat16),
+                    spec.warp_stencil_radius).to(stack.dtype)
+            else:
+                gxy = warp_image_stencil(stack, pxy,
+                                         spec.warp_stencil_radius)
             gx, gy = gxy[0], gxy[1]
         else:
             gx = warp_image_forward(gx, pxy)
@@ -286,7 +374,7 @@ def predict_increment(flow: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
         pred = abs_(pred)
     if weights is not None:
         pred = pred * weights
-    pred = pred / (_safe_frobenius(pred) + NORM_EPS)
+    pred = pred / (_safe_frobenius(pred, extra_norm_sq) + NORM_EPS)
     if mask is not None:
         pred = pred * mask
     return pred
@@ -301,15 +389,29 @@ def dense_objective(params: torch.Tensor, measured: torch.Tensor,
                     weight_inverse: torch.Tensor, mask: torch.Tensor,
                     grid: PatchGrid, spec: GenerativeSpec,
                     weights: Optional[torch.Tensor] = None,
-                    operators=None):
-    """Full-image joint objective over the ``[n_dim, gh, gw]`` field:
-    hybrid cost of prediction vs measurement with the masked flow / pxy /
-    intensity terms.  Returns ``(loss, per-term dict)``."""
+                    operators=None,
+                    roi_crop: Optional[Tuple[int, int, int, int]] = None,
+                    norm_strips=None, strip_operators=None):
+    """Joint objective over the ``[n_dim, gh, gw]`` field: hybrid cost of
+    prediction vs measurement with the masked flow / pxy / intensity
+    terms.  Returns ``(loss, per-term dict)``.
+
+    With ``roi_crop`` every dense field (and the constant images, which
+    the caller crops) covers only the margin-expanded ROI box; the caller
+    (:func:`..pyramid.solve_pyramid`) keeps the full-frame cost: the
+    measurement's full-frame normalization, area-rescaled weights of the
+    mean costs, ``arg["full_domain"]`` for TV and Charbonnier, and the
+    prediction norm's outside part from ``norm_strips``
+    (:func:`outside_norm_sq`, with ``strip_operators``).
+    """
     patch_flow = patch_flow_of(params, spec)
     fields = params_to_fields(params, grid, spec, patch_flow=patch_flow,
-                              operators=operators)
+                              operators=operators, crop=roi_crop)
+    extra = (outside_norm_sq(patch_flow, grid, spec, norm_strips,
+                             operators=strip_operators)
+             if norm_strips else None)
     pred = predict_increment(fields["flow"], gx, gy, spec, fields.get("pxy"),
-                             weights, mask)
+                             weights, mask, extra_norm_sq=extra)
     arg = {
         "prediction": pred,
         "measurement": measured,
@@ -317,6 +419,8 @@ def dense_objective(params: torch.Tensor, measured: torch.Tensor,
         "weights": weight_inverse,
         "omit_boundary": True,
     }
+    if roi_crop is not None:
+        arg["full_domain"] = spec.image_size
     if "pxy" in fields:
         arg["pxy"] = fields["pxy"] * mask
     if "intensity" in fields:

@@ -5,7 +5,7 @@ flags (``--config_file``, ``--log``, ``--eval``), the same YAML schema
 (``configs/README.md``) and the same cross-section propagation of the common
 ROI.  ``yaml`` is imported only where a file is parsed, so the package
 imports on a machine without PyYAML.  The PIV settings are not ported yet
-(ROADMAP Queue 1 #14).
+(ROADMAP Queue 1 #14b).
 """
 
 from __future__ import annotations

@@ -232,9 +232,7 @@ def test_solver_texts_are_parsable(tmp_path):
 @pytest.mark.parametrize("overrides,exc,match", [
     ({"restart_mode": "pmap"}, ValueError, "restart_mode"),
     ({"restrict_to_roi": True, "roi_margin": 1}, ValueError, "roi_margin"),
-    ({"restrict_to_roi": True}, NotImplementedError, "#11"),
     ({"n_restarts": 4, "warm_start": True}, ValueError, "warm_start"),
-    ({"n_restarts": 4}, NotImplementedError, "#11"),
     ({"steady_n_iter": 5}, ValueError, "warm_start"),
     ({"steady_n_iter": 0, "warm_start": True}, ValueError, ">= 1"),
     ({"split_iwe_cache": "fused"}, ValueError, "split_iwe_cache"),
@@ -245,7 +243,6 @@ def test_solver_texts_are_parsable(tmp_path):
     ({"flow_fetch_dtype": "float16"}, NotImplementedError, "#16"),
     ({"flow_fetch_dtype": "bfloat16"}, NotImplementedError, "#16"),
     ({"flow_fetch_dtype": "int8"}, ValueError, "flow_fetch_dtype"),
-    ({"compute_dtype": "bfloat16"}, NotImplementedError, "#11"),
     ({"generative_ml": {"model_image": "e2vid"}}, NotImplementedError,
      "#14"),
     ({"method": "generative_max_likelihood"}, NotImplementedError, "#12"),
@@ -259,16 +256,68 @@ def test_options_not_ported_or_invalid_raise(overrides, exc, match):
         _build(cfg, "torch")
 
 
+@pytest.mark.parametrize("overrides", [
+    {"restrict_to_roi": True},
+    {"n_restarts": 4},
+    {"compute_dtype": "bfloat16"},
+], ids=["restrict_to_roi", "n_restarts", "compute_dtype"])
+def test_pyramid_options_build_and_run(monkeypatch, overrides):
+    """The pyramid's speed and quality options build through the facade
+    and solve a frame: the restricted solve equals the JAX facade's from
+    the same init; the multi-start draws its four inits from the facade's
+    generator; the bfloat16 interior gives a finite flow."""
+    cfg = _config(**overrides)
+    windows = _windows(cfg, 1)
+    solv = _build(cfg, "torch")
+    if "restrict_to_roi" in overrides:
+        assert solv.spec.restrict_to_roi and solv.spec.roi_norm_stride == 4
+        init = pyramid_init(cfg)
+        inject_init(monkeypatch, tfacades, init)
+        inject_init(monkeypatch, jfacades, init)
+        (jflow,) = _solve(_build(cfg, "jax"), windows)
+    state = solv._generator.get_state()
+    (tflow,) = _solve(solv, windows)
+    assert np.isfinite(tflow).all() and np.abs(tflow).max() > 0
+    assert (tflow[:, _outside()] == 0).all()
+    if "restrict_to_roi" in overrides:
+        np.testing.assert_allclose(tflow, jflow, rtol=0, atol=1e-6)
+    if "n_restarts" in overrides:
+        g = torch.Generator(CPU)
+        g.set_state(state)
+        for _ in range(4):
+            torch.rand((4, 6), generator=g, dtype=torch.float64)
+        assert torch.equal(solv._generator.get_state(), g.get_state())
+    if "compute_dtype" in overrides:
+        assert solv.spec.gen.compute_dtype == torch.bfloat16
+        assert solv.spec.gen.dtype == torch.float64
+
+
+@pytest.mark.parametrize("value,want", [
+    ("bfloat16", torch.bfloat16), ("float32", torch.float32),
+    ("float64", None), (None, None)])
+def test_compute_dtype_maps_as_in_jax(value, want):
+    spec = _build(_config(compute_dtype=value), "torch").spec
+    assert spec.gen.compute_dtype == want
+    assert spec.gen.dtype == torch.float64
+
+
 @pytest.mark.parametrize("mode", ["auto", False, "off", "scatter",
                                   "pallas"])
 def test_split_iwe_cache_modes_are_accepted(mode):
     assert _build(_config(split_iwe_cache=mode), "torch").spec.n_iter == 12
 
 
-@pytest.mark.parametrize("dataset", ["CCS", "E2VID", "HELIUM"])
+@pytest.mark.parametrize("dataset", ["E2VID", "HELIUM"])
 def test_recorded_dataset_loaders_are_not_ported_yet(dataset):
-    with pytest.raises(NotImplementedError, match="#14"):
+    with pytest.raises(NotImplementedError, match="#14b"):
         tdata.collections[dataset](config={"height": H, "width": W})
+
+
+def test_ccs_loader_is_registered():
+    from event_based_bos_tpu_torch.data.ccs import CcsDataLoader
+
+    loader = tdata.collections["CCS"](config={"height": H, "width": W})
+    assert isinstance(loader, CcsDataLoader) and loader.NAME == "CCS"
 
 
 def test_model_frame_modes():

@@ -240,10 +240,27 @@ def test_event_filter_crop_matches_jax():
 
 
 @pytest.mark.parametrize("name", ["BAF", "HOT"])
-def test_baf_and_hot_filters_are_not_ported_yet(name):
+def test_baf_and_hot_filters_run_on_the_host_only(name):
+    """BAF and HOT run in the host pipeline (before the upload), as the
+    JAX package's; the device pipeline names the queue item that ports
+    them."""
     cfg = dict(FILTER_CONFIG, filters=[name])
-    with pytest.raises(NotImplementedError, match="#14"):
-        tfilters.EventFilter((H, W), cfg)
+    tf = tfilters.EventFilter((H, W), cfg)
+    jf = jfilters.EventFilter((H, W), cfg)
+    assert tf.filters == jf.filters == ["CROP", name]
+    rng = np.random.default_rng(4)
+    n = 3000
+    arr = np.stack([rng.integers(0, H, n), rng.integers(0, W, n),
+                    np.sort(rng.uniform(0, 0.05, n)),
+                    rng.integers(0, 2, n)], 1).astype(np.float64)
+    arr[:400, :2] = (20, 30)  # one hot pixel
+    got = tf.process_numpy(arr)
+    assert np.array_equal(got, jf.process_numpy(arr))
+    assert 0 < len(got) < len(tfilters.EventFilter(
+        (H, W), FILTER_CONFIG).process_numpy(arr))
+    _jev, tev = both_events(tuple(arr.T.astype(np.float32)))
+    with pytest.raises(NotImplementedError, match="#14b"):
+        tf.process(tev)
 
 
 def test_unknown_filter_raises():

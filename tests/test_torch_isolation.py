@@ -2,12 +2,14 @@
 silent fallback to the CPU.
 
 The port must run on a GPU machine that has no JAX installed, and may lack
-OpenCV, PyYAML, PIL and matplotlib, so every module of
+OpenCV, PyYAML, PIL, matplotlib and h5py, so every module of
 ``event_based_bos_tpu_torch``, ``chip_smoke.py`` and the GPU tools
 (``tools/torch_solve_probe.py``, ``tools/stencil_ab.py``) is imported in a
 subprocess where ``import jax`` fails, and so do ``import cv2``, ``import
-yaml``, ``import PIL`` and ``import matplotlib``.  Entry points called without
-``device=`` must raise here (no GPU) rather than run on the CPU.
+yaml``, ``import PIL``, ``import matplotlib`` and ``import h5py``.  Entry
+points called without ``device=`` must raise here (no GPU) rather than run
+on the CPU.  The port builds its own native runtime and never loads the JAX
+package's.
 """
 
 import pathlib
@@ -38,7 +40,7 @@ def test_port_and_chip_smoke_import_without_jax():
         "sys.modules['jax'] = None\n"
         "sys.modules['optax'] = None\n"
         "sys.modules['event_based_bos_tpu'] = None\n"
-        "for m in ('cv2', 'yaml', 'PIL', 'matplotlib'):\n"
+        "for m in ('cv2', 'yaml', 'PIL', 'matplotlib', 'h5py'):\n"
         "    sys.modules[m] = None\n"
         "import importlib\n"
         "sys.path.insert(0, 'tools')\n"
@@ -64,6 +66,17 @@ def test_no_port_source_names_the_jax_package():
                  if "event_based_bos_tpu." in f.read_text()
                  or "import jax" in f.read_text()]
     assert not offenders, offenders
+
+
+def test_runtime_builds_its_own_library_outside_native():
+    from event_based_bos_tpu_torch import runtime
+
+    path = runtime.library_path()
+    assert path.parent == REPO / "build" / "runtime"
+    assert runtime.available()
+    assert runtime._lib._name == str(path)
+    source = (PORT / "runtime.py").read_text()
+    assert "libebt_runtime.so" not in source
 
 
 def test_entry_points_without_device_raise_on_a_cpu_only_machine():

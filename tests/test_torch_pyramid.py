@@ -192,9 +192,26 @@ def test_schedule_grids_and_mask(size, roi, coarsest, finest, n_iter):
     assert tpyr.roi_mask(tspec).dtype == np.float32
 
 
-def test_multistart_is_not_ported_yet():
-    _, tspec = _specs("float32")
+def test_multistart_runs_and_returns_its_best_lane():
+    """``n_restarts = 4`` from one generator: the flow of the lane with the
+    lowest finest-scale loss, bit for bit (the lanes against the JAX
+    package are in ``test_torch_pyramid_options.py``)."""
+    _, tspec = _specs("float32", n_iter=8)
     spec = dataclasses.replace(tspec, n_restarts=4)
-    with pytest.raises(NotImplementedError):
-        tpyr.estimate_frame(None, np.zeros((H, W)), np.ones((H, W)),
-                            torch.Generator(CPU), spec, device=CPU)
+    _events, frame, _jev, cache, _init = _jax_inputs("float32")
+    g = torch.Generator(CPU).manual_seed(3)
+    flow, aux = tpyr.estimate_frame(None, frame, tpyr.roi_mask(spec), g,
+                                    spec, cache=cache, device=CPU)
+    g = torch.Generator(CPU).manual_seed(3)
+    lanes = []
+    for _ in range(4):
+        x0 = tgen.initialize_params(g, tpyr.pyramid_grids(spec)[0].shape,
+                                    spec.gen, CPU)
+        lanes.append(tpyr.estimate_frame(None, frame, tpyr.roi_mask(spec),
+                                         None, tspec, init_params=x0,
+                                         cache=cache, device=CPU))
+    scores = [float(a["loss_history"][-1].min()) for _f, a in lanes]
+    best = int(np.argmin(scores))
+    assert torch.equal(flow, lanes[best][0])
+    assert float(aux["loss_history"][-1].min()) == min(scores)
+    assert np.isfinite(np_of(flow)).all()

@@ -136,3 +136,111 @@ def torch_threads(n):
         yield
     finally:
         torch.set_num_threads(before)
+
+
+# ---------------------------------------------------------------------------
+# A CCS recording on disk (the helpers of ``test_pipeline_e2e.py``, with the
+# port's copy of the synthetic generator and a choice of homography)
+# ---------------------------------------------------------------------------
+
+CCS_SIZE = (192, 256)
+#: a homography that moves every pixel (shift, shear and a little
+#: perspective), for the loader's ``warp: true``
+CCS_HOMOGRAPHY = np.array([[1.02, 0.01, -1.5],
+                           [0.005, 0.98, 2.0],
+                           [1e-5, 0.0, 1.0]])
+
+
+def encode_evt3(x, y, t_us, p):
+    """A Prophesee EVT3 word stream of a time-sorted event list: TIME_HIGH
+    (0x8) / TIME_LOW (0x6) as the µs clock moves, ADDR_Y (0x0) on a row
+    change, one ADDR_X (0x2, bit 11 = polarity) per event."""
+    words = [0x8 << 12, 0x6 << 12]
+    high = low = 0
+    cur_y = None
+    for xi, yi, ti, pi in zip(x, y, t_us, p):
+        th, tl = (int(ti) >> 12) & 0xFFF, int(ti) & 0xFFF
+        assert int(ti) < (1 << 24), "the fixture keeps epoch 0"
+        if th != high:
+            words.append((0x8 << 12) | th)
+            high = th
+        if tl != low:
+            words.append((0x6 << 12) | tl)
+            low = tl
+        if yi != cur_y:
+            words.append((0x0 << 12) | int(yi))
+            cur_y = yi
+        words.append((0x2 << 12) | (int(pi) << 11) | int(xi))
+    return np.asarray(words, np.uint16)
+
+
+def write_ccs_recording(root, event_format, size=CCS_SIZE, seed=2,
+                        events_per_frame=8000, homography=CCS_HOMOGRAPHY):
+    """A synthetic recording in the CCS layout under ``root/CCS/synth``:
+    events as ``events.hdf5`` or as a raw EVT3 capture
+    (``cd_events.raw``), trigger edges, ``homography.txt`` and
+    ``frames.mp4``.  Returns ``root``."""
+    import pathlib
+
+    import cv2
+
+    h, w = size
+    seq = generate_sequence(SyntheticBosConfig(
+        height=h, width=w, duration=0.2, fps=30,
+        events_per_frame=events_per_frame, seed=seed))
+    root = pathlib.Path(root)
+    d = root / "CCS" / "synth"
+    (d / "prophesee_0").mkdir(parents=True)
+    (d / "basler_0").mkdir(parents=True)
+    ev = seq["events"]
+    ev = ev[np.argsort(ev[:, 2], kind="stable")]
+    xs = ev[:, 1].astype(np.int16)           # sensor x = col
+    ys = ev[:, 0].astype(np.int16)           # sensor y = row
+    ts = (ev[:, 2] * 1e6).astype(np.int32)
+    ps = ev[:, 3] > 0
+    if event_format == "hdf5":
+        import h5py
+
+        with h5py.File(d / "prophesee_0" / "events.hdf5", "w") as f:
+            g = f.create_group("raw_events")
+            for k, v in (("x", xs), ("y", ys), ("t", ts), ("p", ps)):
+                g.create_dataset(k, data=v)
+    else:
+        (d / "prophesee_0" / "cd_events.raw").write_bytes(
+            b"% evt 3.0 synthetic fixture\n% end\n"
+            + encode_evt3(xs, ys, ts, ps).tobytes())
+    ft = seq["frame_ts"]
+    trig = np.stack([(ft * 1e6).astype(int), np.zeros(len(ft), int),
+                     np.ones(len(ft), int)], 1)
+    np.savetxt(d / "prophesee_0" / "trigger_events.txt", trig, fmt="%d")
+    np.savetxt(d / "homography.txt", homography)
+    vw = cv2.VideoWriter(str(d / "basler_0" / "frames.mp4"),
+                         cv2.VideoWriter_fourcc(*"mp4v"), 30, (w, h))
+    assert vw.isOpened(), "no mp4 codec"
+    for fr in seq["frames"]:
+        vw.write(cv2.cvtColor(fr.astype(np.uint8), cv2.COLOR_GRAY2BGR))
+    vw.release()
+    return root
+
+
+def hot_plate_config(root, size=CCS_SIZE, n_iter=24, **top):
+    """``configs/hot_plate1.yaml`` on a recording of
+    :func:`write_ccs_recording`: its solver section as it stands but for
+    ``n_iter`` and float64, the frame size, the ROI's columns scaled with
+    the width, the time list inside the recording."""
+    import pathlib
+
+    import yaml
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "configs"
+    with open(path / "hot_plate1.yaml") as f:
+        cfg = yaml.safe_load(f)
+    h, w = size
+    cfg["data"].update(root=str(root), sequence="synth", height=h, width=w)
+    cfg["common_params"].update(xmin=0, xmax=h, ymin=w // 4,
+                                ymax=w - w // 4)
+    cfg["evaluation"]["time_list"] = [[0.03, 0.15]]
+    cfg["solver"]["optimizer"]["n_iter"] = n_iter
+    cfg["solver"]["precision"] = "64"
+    cfg.update(top)
+    return cfg

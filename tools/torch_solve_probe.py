@@ -2,12 +2,17 @@
 """Probe of the PyTorch port's solve paths on a GPU.
 
     python3 tools/torch_solve_probe.py [--path pyramid|cmax] [--seeds 8]
+                                       [--restrict [--roi-norm-stride 4]]
+                                       [--compute-dtype bfloat16|float32]
                                        [--out FILE]
 
 On the ``chip_smoke.py`` workload (720×1280, 2^19 events), after one
 warm-up frame, for ``--path pyramid`` (the main path: 64→8 patches, 600
 iterations) or ``--path cmax`` (the CMax cell: ``CmaxSpec``'s defaults with
-the bench ROI, 260 Adam steps):
+the bench ROI, 260 Adam steps); ``--restrict`` solves the pyramid on the
+margin-expanded ROI box (``restrict_to_roi``, outside-norm stride
+``--roi-norm-stride``) and ``--compute-dtype`` runs its objective's
+interior in that dtype:
 
 * EPE against the synthetic ground truth and ms/frame (CUDA events) over
   ``--seeds`` frames — random initializations
@@ -43,6 +48,11 @@ def main(argv=None):
     ap.add_argument("--path", choices=("pyramid", "cmax"),
                     default="pyramid")
     ap.add_argument("--seeds", type=int, default=8)
+    ap.add_argument("--restrict", action="store_true",
+                    help="pyramid: restrict_to_roi")
+    ap.add_argument("--roi-norm-stride", type=int, default=4)
+    ap.add_argument("--compute-dtype", choices=("bfloat16", "float32"),
+                    default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -62,9 +72,13 @@ def main(argv=None):
     events, frame, gt_flow = cs.make_workload()
     gen = GenerativeSpec(image_size=(cs.H, cs.W), iwe_sigma=2.0,
                          weight_by_inverse_event_hist=True,
-                         optimize_warp=True, poisson_model=True)
+                         optimize_warp=True, poisson_model=True,
+                         compute_dtype=getattr(torch, args.compute_dtype)
+                         if args.compute_dtype else None)
     spec = PyramidSpec(gen=gen, roi=cs.ROI, coarsest_patch=64,
-                       finest_patch=8, n_iter=cs.N_ITER)
+                       finest_patch=8, n_iter=cs.N_ITER,
+                       restrict_to_roi=args.restrict,
+                       roi_norm_stride=args.roi_norm_stride)
     ev = events_from_ndarray(events, capacity=cs.CAPACITY, device=dev)
     frame_t = torch.as_tensor(frame, dtype=torch.float32, device=dev)
     mask = torch.as_tensor(roi_mask(spec), device=dev)
@@ -117,6 +131,9 @@ def main(argv=None):
         "device": torch.cuda.get_device_name(0),
         "card": cs.card_line(),
         "path": args.path,
+        "restrict_to_roi": args.restrict,
+        "roi_norm_stride": args.roi_norm_stride if args.restrict else None,
+        "compute_dtype": args.compute_dtype,
         "seeds": args.seeds,
         "epe_px": epe,
         "epe_median_px": statistics.median(epe),
