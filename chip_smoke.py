@@ -125,7 +125,31 @@ failure:
    EVT3 with ``filters: [BAF, HOT]``.  The native runtime must have built
    (``g++``); finite error texts, +0.0 outside the ROI, three vote
    launches a frame (the visualizing loop), and the EVT3 flows equal to
-   the HDF5 flows bit for bit where both ran.
+   the HDF5 flows bit for bit where both ran;
+11. the other solvers at full width on a uniform-displacement scene
+   (``tests/reference_harness.py::synthetic_scene`` rebuilt here: 720×1280,
+   du = (1.5, −0.8), 523,264 events on integer sensor coordinates): GML
+   (the plain model with the warp pair, lr 0.05) with Adam, 600 steps, a
+   warm-up and two timed frames (bit-identical, cosine of the fitted
+   velocity with −du > 0.9); one frame each of BFGS (40), Nelder-Mead
+   (200), Newton-CG (20), all from (0.1, −0.1, 0, 0), and of ``random``
+   and ``grid`` (512 trials of (v_x, v_y) in (−3, 3)²), each with a final
+   loss below its first; ``TPE`` (100 trials) through the GML facade;
+   PatchEklt and PatchEkltDependent at the facades' defaults (4/2 patches:
+   229,401 patches, 600 Adam steps; the angle and the poisson model), a
+   warm-up and two timed frames each (bit-identical; PatchEklt's mean
+   direction's cosine with −du > 0.5, the joint loss decreasing); CMax's
+   translation model (16 bins) with ``random`` (512) and ``BFGS`` (40) in
+   (−4, 4)² on the translating dots, within 0.5 px of their motion; one
+   vote launch a solve, the host reads (L-BFGS's line search, TPE's
+   trials) and the CUDA synchronisations counted per solve; the GML
+   serving loop (``cli.evaluate_per_frames``, phase 6's loader, the
+   ``configs/hot_plate1.yaml`` solver with ``method:
+   generative_max_likelihood``: 3 parameters, two frames; one vote a frame
+   for the IWE cache and one for the event mask; the first frame
+   bit-identical to ``estimate_frame_gml`` on the same inputs and
+   generator state; its flow one constant over the frame); small float64
+   scenes of every new solver on the card and on the CPU within 1e-6.
 
 Prints the whole run's seconds, a ``kernels`` JSON line, the
 ``nvidia-smi`` line, and last
@@ -1073,14 +1097,15 @@ def serving_config(name, method="patch_eklt_pyramid2",
     with ``bench.py``'s events per frame and displacement, serving
     (``visualize: false``), ``flow_convention: physical`` and ``profile:
     true``; ``time_list`` yields frames 1–3 of the 0.2 s recording.  The
-    CMax method takes ``CmaxSpec``'s defaults (an empty solver section).
+    pyramid and GML take that solver section; the CMax method takes
+    ``CmaxSpec``'s defaults (an empty solver section).
     Propagated as ``parse_args`` does."""
     from event_based_bos_tpu_torch.utils.config import propagate_config
 
     roi = dict(zip(("xmin", "xmax", "ymin", "ymax"), ROI))
     solver = {"filter": {"filters": None, "parameters": {}},
               "method": method}
-    if method == "patch_eklt_pyramid2":
+    if method in ("patch_eklt_pyramid2", "generative_max_likelihood"):
         solver.update({
             "warp_direction": "first", "motion_model": "2d-translation",
             "parameters": ["trans_x", "trans_y"], "cost": "hybrid",
@@ -1213,6 +1238,7 @@ def drive_serving(config, loader, device, gt_estimator, viz=None,
         handle = estimate_async(events, *args, **kwargs)
         first.setdefault("device_flow", getattr(handle, "device_flow",
                                                 None))
+        first.setdefault("handle", handle)
         return handle
 
     solv.estimate_async = recorded
@@ -2169,6 +2195,407 @@ def run_ccs(device):
     return {"votes": sum(3 * len(f) for _o, f in runs.values())}
 
 
+OTHER_DU = (1.5, -0.8)     # phase 11's uniform pattern displacement (row, col)
+OTHER_TRIALS = 512         # the samplers' budget at full width
+GML_BOX = 3.0              # the samplers' box (−3, 3)² of (v_x, v_y)
+CMAX_BOX = 4.0             # CMax translation's box (−4, 4)² around the dots
+# PatchEklt's mean direction at 0.57 events/px on 4×4 patches: many
+# patches hold a few events and each fits its own angle, so the cosine is
+# about 0.6 here, the JAX package's solve's as well (its test's 0.7 is at
+# 3.3 events/px on 32-px patches)
+PATCH_COS_LIMIT = 0.5
+
+
+def other_solvers_scene(h=None, w=None, n=None, du=OTHER_DU, seed=0):
+    """A uniform-displacement scene (``tests/reference_harness.py::
+    synthetic_scene``, rebuilt here): a smooth random pattern ``I1``, the
+    pattern shifted by ``du``, and ``n`` events on integer sensor
+    coordinates drawn where the brightness changes, signed by the change
+    (by default ``H``×``W`` and ``CAPACITY − 1024`` events).  Returns
+    ``(I1, events (n, 4))``."""
+    import numpy as np
+
+    h, w = h or H, w or W
+    n = n or CAPACITY - 1024
+    rng = np.random.default_rng(seed)
+    coarse = rng.uniform(0, 255, (h // 3 + 2, w // 3 + 2))
+    ys = np.linspace(0, coarse.shape[0] - 1.001, h)
+    xs = np.linspace(0, coarse.shape[1] - 1.001, w)
+    y0, x0 = ys.astype(int), xs.astype(int)
+    fy, fx = (ys - y0)[:, None], (xs - x0)[None, :]
+    i1 = ((1 - fy) * (1 - fx) * coarse[np.ix_(y0, x0)]
+          + fy * (1 - fx) * coarse[np.ix_(y0 + 1, x0)]
+          + (1 - fy) * fx * coarse[np.ix_(y0, x0 + 1)]
+          + fy * fx * coarse[np.ix_(y0 + 1, x0 + 1)])
+    gy, gx = np.mgrid[0:h, 0:w].astype(float)
+    sy = np.clip(gy - du[0], 0, h - 1)
+    sx = np.clip(gx - du[1], 0, w - 1)
+    yy0, xx0 = np.floor(sy).astype(int), np.floor(sx).astype(int)
+    yy1, xx1 = np.minimum(yy0 + 1, h - 1), np.minimum(xx0 + 1, w - 1)
+    fy2, fx2 = sy - yy0, sx - xx0
+    i2 = ((1 - fy2) * (1 - fx2) * i1[yy0, xx0] + fy2 * (1 - fx2) * i1[yy1, xx0]
+          + (1 - fy2) * fx2 * i1[yy0, xx1] + fy2 * fx2 * i1[yy1, xx1])
+    dl = i2 - i1
+    mag = np.abs(dl)
+    idx = rng.choice(h * w, size=n, p=(mag / mag.sum()).reshape(-1))
+    pol = np.sign(dl.reshape(-1)[idx])
+    pol[pol == 0] = 1
+    t = np.sort(rng.uniform(0, 0.008, n))
+    events = np.stack([(idx // w).astype(float), (idx % w).astype(float), t,
+                       pol], 1)
+    return i1, events
+
+
+def gml_spec(method, n_iter, size=None, roi=None, dtype=None, **kw):
+    """The whole-ROI solver of ``tests/test_solvers.py``'s GML cases: the
+    plain model with the warp pair (4 parameters; ``diff_norm`` and
+    ``flow_norm_pxy``), lr 0.05; a sampler fits (v_x, v_y) alone in the
+    box (−3, 3)²."""
+    import torch
+
+    from event_based_bos_tpu_torch.solver import GenerativeSpec, GmlSpec
+
+    sampler = method in ("random", "grid")
+    gen = GenerativeSpec(
+        image_size=size or (H, W), iwe_sigma=2.0, weight_by_inverse_event_hist=False,
+        optimize_warp=not sampler, poisson_model=False,
+        cost_weights=((("diff_norm", 1.0),) if sampler else
+                      (("diff_norm", 1.0), ("flow_norm_pxy", 0.1))),
+        dtype=dtype or torch.float32)
+    bounds = ((-GML_BOX, GML_BOX),) * 2 if sampler else ()
+    return GmlSpec(gen=gen, roi=roi or ROI, method=method, n_iter=n_iter,
+                   lr=0.05, param_bounds=bounds, **kw)
+
+
+def other_solver_config(solver, n_iter=None, **optimizer):
+    """A solver section (as a user's YAML gives it) for the tiled facades
+    and GML's TPE (``solver`` the method name; ``optimizer`` overrides
+    keys of the optimizer section): the patch sizes and cost weights as
+    shipped, the angle model for ``patch_eklt``, the poisson model for
+    ``patch_eklt_dependent``, (v_x, v_y) in (−3, 3)² for GML."""
+    gml = solver == "generative_max_likelihood"
+    box = {"min": -GML_BOX, "max": GML_BOX}
+    return {
+        "filter": {"filters": None, "parameters": dict(zip(
+            ("xmin", "xmax", "ymin", "ymax"), ROI))},
+        "method": solver,
+        "cost_with_weight": ({"diff_norm": 1.0} if gml else
+                             {"diff_norm": 1.0, "image_gradient": 0.5,
+                              "flow_norm_pxy": 0.1}),
+        "optimizer": {"method": "Adam", "n_iter": n_iter or N_ITER,
+                      "parameters": {"v_x": box, "v_y": box}, **optimizer},
+        "generative_ml": {"weight_loss_by_inverse_event_hist": True,
+                          "optimize_warp": not gml, "iwe_sigma": 2,
+                          "angle_model": solver == "patch_eklt",
+                          "poisson_model": solver == "patch_eklt_dependent"},
+        "patch_eklt": {"patch_size": 4, "sliding_window": 2},
+    }
+
+
+def direction_cosine(flow, roi=None):
+    """Cosine of the mean flow over the ROI with −du (the generative model
+    fits −du, the reference's convention)."""
+    import numpy as np
+
+    x0, x1, y0, y1 = roi or ROI
+    v = np.asarray(flow)[:, x0:x1, y0:y1].reshape(2, -1).mean(1)
+    du = -np.asarray(OTHER_DU)
+    return float(v @ du / (np.linalg.norm(v) * np.linalg.norm(du) + 1e-12))
+
+
+def timed_solve(solve):
+    """``solve()`` with the launch counts set to 0 just before, a CUDA-event
+    span around it and the host synchronisations it made counted
+    (``torch.cuda.set_sync_debug_mode``); returns ``(out, ms, vote
+    launches, host syncs)``."""
+    import torch
+
+    from event_based_bos_tpu_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            s.record()
+            out = solve()
+            e.record()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    e.synchronize()
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    return out, s.elapsed_time(e), kernels.launches["hat_vote_image"], syncs
+
+
+def repeated_solve(name, solve, frames=3):
+    """A warm-up frame, then ``frames − 1`` timed frames of ``solve()``
+    (each ``(flow, aux)``), which must be the same bit for bit; one vote
+    launch a frame.  Returns the last ``(flow, aux)`` and the ms/frame."""
+    import torch
+
+    ms, flows, votes = [], [], []
+    for _ in range(frames):
+        (flow, aux), t, v, _syncs = timed_solve(solve)
+        ms.append(t)
+        flows.append(flow)
+        votes.append(v)
+    same = all(torch.equal(f, flows[1]) for f in flows[2:])
+    timed = statistics.median(ms[1:])
+    print(f"other solvers: {name}: {timed:.1f} ms/frame (frames "
+          f"{', '.join(f'{t:.1f}' for t in ms)}, the first a warm-up); vote "
+          f"launches a frame {votes}; timed frames bit-identical {same}")
+    assert votes == [1] * frames, votes
+    assert same, f"{name}: the timed frames differ"
+    return flow, aux, timed
+
+
+def check_small_other_solvers(device):
+    """Phase 11: small float64 scenes of every new solver on the card and on
+    the CPU must agree within 1e-6."""
+    import numpy as np
+    import torch
+
+    from event_based_bos_tpu_torch import events_from_ndarray
+    from event_based_bos_tpu_torch.solver import (
+        GenerativeSpec, PatchSpec, estimate_frame_dependent,
+        estimate_frame_gml, estimate_frame_patch)
+
+    h, w = 64, 96
+    roi = (0, h, 16, 80)
+    frame, evn = other_solvers_scene(h, w, 20000)
+    x0 = np.array([0.1, -0.1, 0.0, 0.0])
+    init = np.zeros((3, 31, 47))
+    init[0] = np.random.default_rng(0).uniform(-1, 1, (31, 47))
+    cases = {}
+    for method, n_iter in (("Adam", 40), ("BFGS", 10), ("Nelder-Mead", 50),
+                           ("Newton-CG", 5)):
+        spec = gml_spec(method, n_iter, (h, w), roi, torch.float64)
+        cases[f"GML {method} {n_iter}"] = (
+            lambda ev, dev, spec=spec: estimate_frame_gml(
+                ev, frame, None, spec, x0=x0, device=dev)[0])
+    for dependent in (False, True):
+        gen = GenerativeSpec(image_size=(h, w), iwe_sigma=2.0,
+                             weight_by_inverse_event_hist=True,
+                             angle_model=not dependent,
+                             poisson_model=dependent, dtype=torch.float64)
+        spec = PatchSpec(gen=gen, roi=roi, n_iter=40)
+        if dependent:
+            cases["PatchEkltDependent 40"] = (
+                lambda ev, dev, spec=spec: estimate_frame_dependent(
+                    ev, frame, None, spec, init_params=init, device=dev)[0])
+        else:
+            cases["PatchEklt 40"] = (
+                lambda ev, dev, spec=spec: estimate_frame_patch(
+                    ev, frame, None, spec, device=dev)[0])
+    errs = {}
+    for name, solve in cases.items():
+        flows = [solve(events_from_ndarray(evn, dtype=torch.float64,
+                                           device=dev), dev).cpu()
+                 for dev in (device, "cpu")]
+        assert torch.isfinite(flows[0]).all(), name
+        errs[name] = float((flows[0] - flows[1]).abs().max())
+    print("other solvers: small float64 scenes (64x96), card vs CPU max|flow "
+          "diff| (limit 1e-6): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    assert max(errs.values()) <= 1e-6, errs
+
+
+def run_other_solvers(device, loader, gt):
+    """Phase 11: the other solvers at full width on a 720×1280
+    uniform-displacement scene, CMax's translation model on the translating
+    dots, and the GML serving loop."""
+    import numpy as np
+    import torch
+
+    from event_based_bos_tpu_torch import events_from_ndarray, kernels
+    from event_based_bos_tpu_torch.solver import (
+        estimate_frame_cmax, estimate_frame_dependent, estimate_frame_gml,
+        estimate_frame_patch, facades, generative, programs)
+    from event_based_bos_tpu_torch.solver.cmax import CmaxSpec
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    frame, evn = other_solvers_scene()
+    ev = events_from_ndarray(evn, capacity=CAPACITY, device=dev)
+    frame_t = torch.as_tensor(frame, dtype=torch.float32, device=dev)
+    print(f"other solvers: scene {H}x{W}, {len(evn)} events, du "
+          f"{OTHER_DU} ({time.perf_counter() - t_phase:.1f} s to make)")
+    results, votes = {}, 0
+
+    # GML, Adam: a warm-up and two timed frames.  Every iterative method
+    # starts off 0: at v = 0 the prediction is 0, and at this event density
+    # no fitted direction's loss beats that of the zero prediction, so the
+    # best iterate would stay at the start
+    x0 = torch.tensor([0.1, -0.1, 0.0, 0.0], device=dev)
+    spec = gml_spec("Adam", N_ITER)
+    flow, aux, ms = repeated_solve(
+        f"GML Adam {N_ITER}", lambda: estimate_frame_gml(
+            ev, frame_t, None, spec, x0=x0, device=dev))
+    cos = direction_cosine(flow.cpu().numpy())
+    print(f"other solvers: GML Adam: theta {aux['theta'].tolist()}, cosine "
+          f"with -du {cos:.4f} (limit 0.9)")
+    assert cos > 0.9, cos
+    results["gml_adam"] = dict(ms_per_frame=ms, cosine=cos)
+    votes += 3
+
+    # GML, the other families: one frame each
+    for method, n_iter in (("BFGS", 40), ("Nelder-Mead", 200),
+                           ("Newton-CG", 20), ("random", OTHER_TRIALS),
+                           ("grid", OTHER_TRIALS)):
+        spec = gml_spec(method, n_iter)
+        sampler = method in ("random", "grid")
+        (flow, aux), ms, v, syncs = timed_solve(
+            lambda: estimate_frame_gml(
+                ev, frame_t, torch.Generator(dev).manual_seed(0), spec,
+                x0=None if sampler else x0, device=dev))
+        hist = aux["history"].cpu().numpy()
+        flow_np = flow.cpu().numpy()
+        cos = direction_cosine(flow_np)
+        reads = aux.get("host_reads", 0)
+        print(f"other solvers: GML {method} {n_iter}: {ms:.1f} ms, "
+              f"{len(hist)} losses {hist[0]:.6g} -> best "
+              f"{float(aux['loss']):.6g}, cosine with -du {cos:.4f}, vote "
+              f"launches {v}, host reads {reads}, CUDA syncs {syncs}")
+        assert np.isfinite(flow_np).all() and v == 1, (method, v)
+        assert float(aux["loss"]) < hist[0], (method, hist[0])
+        results[f"gml_{method}"] = dict(ms_per_frame=ms, cosine=cos,
+                                        host_reads=reads, cuda_syncs=syncs)
+        votes += 1
+
+    # GML TPE through the facade (100 trials; the study on the host)
+    solver_config = other_solver_config("generative_max_likelihood",
+                                        n_iter=100, method="optuna",
+                                        sampler="TPE")
+    solv = facades.collections["generative_max_likelihood"](
+        (H, W), (H, W), solver_config=solver_config, device=dev)
+    handle, ms, v, syncs = timed_solve(
+        lambda: (lambda hd: (hd.result(), hd))(
+            solv.estimate_async(ev, frame=frame)))
+    flow_np, hd = handle
+    hist = hd.loss_history[0].cpu().numpy()
+    cos = direction_cosine(flow_np)
+    print(f"other solvers: GML TPE 100 (facade): {ms:.1f} ms, losses "
+          f"{hist[0]:.6g} -> best {hist.min():.6g}, cosine with -du "
+          f"{cos:.4f}, vote launches {v}, host reads {hd.host_reads} (the "
+          f"seed and one a trial), CUDA syncs {syncs} (each trial's "
+          f"upload too)")
+    assert np.isfinite(flow_np).all() and v == 1 and hist.min() < hist[0]
+    assert hd.host_reads == 101, hd.host_reads
+    results["gml_TPE"] = dict(ms_per_frame=ms, cosine=cos,
+                              host_reads=hd.host_reads, cuda_syncs=syncs)
+    votes += 1
+
+    # PatchEklt at the facade's defaults: 4/2 patches, the angle model
+    solv = facades.collections["patch_eklt"](
+        (H, W), (H, W), solver_config=other_solver_config("patch_eklt"),
+        device=dev)
+    pspec = solv.spec
+    flow, aux, ms = repeated_solve(
+        f"PatchEklt Adam {pspec.n_iter}, {pspec.grid.n_patch} patches "
+        f"({pspec.grid.shape[0]}x{pspec.grid.shape[1]})",
+        lambda: estimate_frame_patch(ev, frame_t, None, pspec, device=dev))
+    cos = direction_cosine(flow.cpu().numpy())
+    print(f"other solvers: PatchEklt: lr {pspec.lr}, mean direction's cosine "
+          f"with -du {cos:.4f} (limit {PATCH_COS_LIMIT})")
+    assert pspec.grid.shape == ((H - 4) // 2 + 1, (W - 4) // 2 + 1)
+    assert pspec.lr == 0.01
+    assert torch.isfinite(flow).all() and cos > PATCH_COS_LIMIT, cos
+    results["patch_eklt"] = dict(ms_per_frame=ms, cosine=cos,
+                                 patches=pspec.grid.n_patch)
+    votes += 3
+
+    # PatchEkltDependent at the same grid, the poisson model
+    solv = facades.collections["patch_eklt_dependent"](
+        (H, W), (H, W),
+        solver_config=other_solver_config("patch_eklt_dependent"),
+        device=dev)
+    dspec = solv.spec
+    flow, aux, ms = repeated_solve(
+        f"PatchEkltDependent Adam {dspec.n_iter}",
+        lambda: estimate_frame_dependent(
+            ev, frame_t, torch.Generator(dev).manual_seed(0), dspec,
+            device=dev))
+    hist = aux["history"].cpu().numpy()
+    cos = direction_cosine(flow.cpu().numpy())
+    print(f"other solvers: PatchEkltDependent: losses {hist[0]:.6g} -> "
+          f"best {float(aux['loss']):.6g}; mean direction's cosine with -du "
+          f"{cos:.4f} (no limit)")
+    assert torch.isfinite(flow).all() and float(aux["loss"]) < hist[0]
+    results["patch_eklt_dependent"] = dict(ms_per_frame=ms, cosine=cos)
+    votes += 3
+
+    # CMax's translation model on the translating dots
+    vx, vy = DOT_MOTION
+    dots = moving_dot_events(H, W, vx, vy, CAPACITY - 1024, seed=1)
+    dots[:, :2] = np.round(dots[:, :2])
+    dev_dots = events_from_ndarray(dots, capacity=CAPACITY, device=dev)
+    for method, n_iter in (("random", OTHER_TRIALS), ("BFGS", 40)):
+        cspec = CmaxSpec(image_size=(H, W), roi=ROI,
+                         motion_model="2d-translation", n_iter=n_iter,
+                         method=method,
+                         param_bounds=((-CMAX_BOX, CMAX_BOX),) * 2)
+        (flow, aux), ms, v, syncs = timed_solve(
+            lambda: estimate_frame_cmax(
+                dev_dots, None, torch.Generator(dev).manual_seed(0), cspec,
+                device=dev))
+        got = flow[:, 0, 0].cpu().numpy()
+        err = float(np.abs(got - [vx, vy]).max())
+        reads = aux.get("host_reads", 0)
+        print(f"other solvers: CMax translation {method} {n_iter} "
+              f"({cspec.time_bins} bins): {ms:.1f} ms, flow "
+              f"{got.tolist()} (dots {vx:g}, {vy:g}; off by {err:.3f} px, "
+              f"limit 0.5), vote launches {v}, host reads {reads}, CUDA "
+              f"syncs {syncs}")
+        assert v == 1 and err < 0.5, (method, got)
+        results[f"cmax_{method}"] = dict(ms_per_frame=ms, error_px=err,
+                                         host_reads=reads, cuda_syncs=syncs)
+        votes += 1
+
+    # the serving loop: configs/hot_plate1.yaml's solver section with
+    # method: generative_max_likelihood (the poisson model with the warp
+    # pair: 3 parameters, the clamped read)
+    config = serving_config("gml", method="generative_max_likelihood",
+                            time_list=((0.01, 0.15),))
+    solv, launches, callers, first, ms, lines = drive_serving(
+        config, loader, device, gt,
+        callers={"iwe_cache": (generative, "iwe_cache"),
+                 "eventmask": (programs, "eventmask")})
+    n = solv.iter_cnt
+    per_caller = callers.launches()
+    epe = check_serving_outputs(config, 2, zero_outside=False)
+    flows = [np.load(os.path.join(config["output_dir"], f"pred_flow{i}.npy"))
+             for i in range(n)]
+    gen = torch.Generator(dev)
+    gen.set_state(first["state"])
+    direct, _ = estimate_frame_gml(first["events"], first["frame"], gen,
+                                   solv.spec, device=dev)
+    same = np.array_equal(first["handle"].result(),
+                          solv._orient_flow(direct.cpu().numpy()))
+    print(f"other solvers: serving GML (hot_plate1 solver, 3 parameters): "
+          f"{n} frames, {ms:.1f} ms/frame (wall clock); vote launches "
+          f"{launches['hat_vote_image']} ({per_caller}); EPE without mask "
+          f"{epe[SERVE_TEXTS[0]]}; first frame bit-identical to "
+          f"estimate_frame_gml {same}")
+    assert n == 2 and solv.spec.gen.param_dim == 3, (n, solv.spec)
+    assert per_caller == {"iwe_cache": 2, "eventmask": 2}, per_caller
+    assert launches["hat_vote_image"] == 4, launches
+    # one constant flow over the frame (no ROI mask in this solver)
+    assert all(np.ptp(f[i]) == 0 for f in flows for i in (0, 1))
+    assert same, "the facade's flow differs from estimate_frame_gml's"
+    results["serving_gml"] = dict(ms_per_frame=ms, epe=epe,
+                                  vote_launches=per_caller)
+    votes += 4
+    kernels.reset_launches()
+
+    check_small_other_solvers(device)
+    seconds = time.perf_counter() - t_phase
+    print(f"other solvers: phase {seconds:.1f} s")
+    print(json.dumps({"other_solvers": results}))
+    return {"votes": votes, "results": results, "seconds": seconds}
+
+
 def main():
     import torch
 
@@ -2233,6 +2660,8 @@ def main():
     entries[0]["launches_pyramid_modes"] = modes["votes"]
     ccs = run_ccs("cuda")
     entries[0]["launches_ccs"] = ccs["votes"]
+    others = run_other_solvers("cuda", loader, gt)
+    entries[0]["launches_other_solvers"] = others["votes"]
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": entries}))

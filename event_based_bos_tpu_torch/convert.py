@@ -3,7 +3,9 @@
 The system has no trained weights.  What one package can hand the other is
 the solver state, as numpy arrays:
 
-  * ``init_params`` — the coarsest-scale parameter field ``[n_dim, gh, gw]``;
+  * ``init_params`` — the coarsest-scale parameter field ``[n_dim, gh, gw]``
+    of the pyramid, or the joint tiled solver's whole field;
+  * ``x0`` — the whole-ROI (GML) solver's parameter vector ``[d]``;
   * ``params_per_scale`` / ``prev_params`` — per-scale fields, coarsest
     first (the warm-start state);
   * ``cache`` — the IWE cache ``(histogram, weights | None,
@@ -26,7 +28,8 @@ from .types import Events
 
 __all__ = ["state_from_numpy", "state_to_numpy"]
 
-_KEYS = ("init_params", "params_per_scale", "prev_params", "cache", "events")
+_KEYS = ("init_params", "x0", "params_per_scale", "prev_params", "cache",
+         "events")
 
 
 def _float_array(name: str, a, ndim: int) -> np.ndarray:
@@ -58,6 +61,8 @@ def state_from_numpy(state: Dict[str, object], device=None,
     out: Dict[str, object] = {}
     if state.get("init_params") is not None:
         out["init_params"] = tensor("init_params", state["init_params"], 3)
+    if state.get("x0") is not None:
+        out["x0"] = tensor("x0", state["x0"], 1)
     for key in ("params_per_scale", "prev_params"):
         if state.get(key) is not None:
             out[key] = [tensor(f"{key}[{i}]", a, 3)
@@ -96,7 +101,7 @@ def state_to_numpy(state: Dict[str, object]) -> Dict[str, object]:
     for key, val in state.items():
         if key not in _KEYS:
             raise KeyError(f"unknown state key {key!r}")
-        if key == "init_params":
+        if key in ("init_params", "x0"):
             out[key] = arr(val)
         elif key in ("params_per_scale", "prev_params"):
             out[key] = [arr(t) for t in val]

@@ -213,6 +213,15 @@ class _BinnedWarpAccumulate(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        # The backward kernel has no derivative of its own, so a second
+        # derivative (a Hessian-vector product) must fail, not come out
+        # partial.  ``once_differentiable`` is not enough: it hangs its
+        # error on detached copies, which a double backward that also
+        # reaches the flow through another term never visits.
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                "binned_warp_accumulate has no second derivative: its "
+                "backward cannot run under create_graph=True")
         hists, flow, dts = ctx.saved_tensors
         dflow = cmax_stencil_bwd(hists, flow, dts, g, ctx.radius)
         return None, dflow.to(ctx.flow_dtype), None, None

@@ -41,6 +41,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import kernels
 from ..device import resolve_device
 from ..ops.events import time_period
 from ..ops.filters import EventFilter
@@ -204,9 +205,11 @@ class SolverBase:
             device=self.device, dtype=self.dtype)
 
     def prewarm(self, capacity: int) -> None:
-        """Prepare the first frame's work ahead of it.  No-op here; a
-        facade that launches kernels builds and loads them.  Never draws
-        from the solver's generator."""
+        """Prepare the first frame's work ahead of it: on the card, build
+        and load the kernels (every facade votes its events through them).
+        Never draws from the solver's generator."""
+        if self.device.type == "cuda":
+            kernels.library()
 
     # -- main API ----------------------------------------------------------------
     def preprocess(self, events, need_t: Optional[bool] = None):
@@ -573,4 +576,6 @@ from .facades import (  # noqa: E402,F401
     collections,
 )
 
-__all__ += ["ContrastMaximization", "PatchEkltPyramid2", "collections"]
+__all__ += ["ContrastMaximization", "GenerativeMaximumLikelihood",
+            "PatchEklt", "PatchEkltDependent", "PatchEkltPyramid2",
+            "collections"]

@@ -15,7 +15,11 @@ is the binned stencil of
 under autograd.  The two differ in the gradient at the hat's kinks (see
 ``ops/cmax_cuda.py``), as the JAX package's Pallas and jnp routes do.
 
-Not ported yet: the sampler and scipy methods (only Adam runs).
+The translation model takes every optimizer name: the first-order
+methods, the scipy families and the samplers (``TPE`` as the two-stage
+stand-in, as in the JAX package, where it runs inside a jitted program).
+The dense model takes the first-order methods only; any other name raises
+``KeyError`` there, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -36,7 +40,8 @@ from ..ops.iwe import bilinear_vote, blur_operators, gaussian_blur
 from ..ops.iwe_cuda import hat_vote
 from ..ops.warp import (calculate_reftime, warp_event_2dof,
                         warp_event_dense_flow)
-from ..optim import SAMPLER_METHODS, SCIPY_METHODS, run_first_order
+from ..optim import (SAMPLER_METHODS, SCIPY_METHODS, run_first_order,
+                     run_sampler, run_scipy_method)
 from ..types import Events, PatchGrid
 from .generative import dense_operators, patch_to_dense
 
@@ -213,26 +218,20 @@ def binned_iwe(hists: torch.Tensor, dt: torch.Tensor, flow: torch.Tensor,
     return iwe
 
 
-def _check_method(spec: CmaxSpec) -> None:
-    if spec.method in SAMPLER_METHODS or spec.method in SCIPY_METHODS:
-        raise NotImplementedError(f"{spec.method} is not ported yet; use "
-                                  "Adam")
-
-
 def solve_cmax_translation(ev: Events,
                            generator: Optional[torch.Generator],
                            spec: CmaxSpec,
-                           x0: Optional[torch.Tensor] = None):
+                           x0: Optional[torch.Tensor] = None, draws=None):
     """Global 2-DoF CMax fit; returns ``(motion [2], result)``.
 
     The motion is the *warp* parameter (events displaced by +v need warp
     −v to sharpen); the flow is its negative.  With ``time_bins > 0`` each
     bin's histogram shifts by ``dt_b·θ`` through banded matmuls
     (:func:`shift_image_matrix`, exact for any shift); ``time_bins = 0``
-    warps every event.  ``generator`` is for the samplers, which are not
-    ported yet; Adam does not draw.
+    warps every event.  The samplers draw inside the bounds box from
+    ``generator`` (or take ``draws``, see :func:`..optim.run_sampler`); the
+    scipy and first-order methods project every iterate onto it.
     """
-    _check_method(spec)
     dev = ev.t.device
     # the IWE has the events' and the motion's promoted dtype
     blur = _blur_operators(spec.image_size,
@@ -267,13 +266,23 @@ def solve_cmax_translation(ev: Events,
     pb = tuple(spec.param_bounds[:2])
     if len(pb) < 2:
         pb = pb + ((-30.0, 30.0),) * (2 - len(pb))
+    if spec.method in SAMPLER_METHODS:
+        result = run_sampler(objective, ([b[0] for b in pb],
+                                         [b[1] for b in pb]),
+                             spec.n_iter, spec.method, generator,
+                             draws=draws, device=dev)
+        return result.param, result
     lo = torch.tensor([b[0] for b in pb], dtype=spec.dtype, device=dev)
     hi = torch.tensor([b[1] for b in pb], dtype=spec.dtype, device=dev)
     if x0 is None:
         x0 = torch.zeros((2,), dtype=spec.dtype, device=dev)
-    result = run_first_order(objective, x0, spec.n_iter, spec.method,
-                             lr=spec.lr, lr_decay=spec.lr_decay,
-                             bounds=(lo, hi))
+    if spec.method in SCIPY_METHODS:
+        result = run_scipy_method(objective, x0, spec.n_iter, spec.method,
+                                  bounds=(lo, hi))
+    else:
+        result = run_first_order(objective, x0, spec.n_iter, spec.method,
+                                 lr=spec.lr, lr_decay=spec.lr_decay,
+                                 bounds=(lo, hi))
     return result.param, result
 
 
@@ -289,7 +298,6 @@ def solve_cmax_dense(ev: Events, generator: Optional[torch.Generator],
     widened ROI box; otherwise the events are warped one by one.
     ``init`` is the coarsest start (zeros by default).
     """
-    _check_method(spec)
     dev = ev.t.device
     promoted = torch.promote_types(ev.x.dtype, spec.dtype)
     if spec.time_bins > 0:
@@ -360,8 +368,11 @@ def estimate_frame_cmax(ev: Events, frame,
         motion, result = solve_cmax_translation(ev, generator, spec)
         flow = (-motion)[:, None, None].expand(
             (2,) + tuple(spec.image_size))
-        return flow, {"motion": motion, "loss": result.loss,
-                      "history": result.history}
+        aux = {"motion": motion, "loss": result.loss,
+               "history": result.history}
+        if "host_reads" in result:  # L-BFGS's line search
+            aux["host_reads"] = result["host_reads"]
+        return flow, aux
     if spec.motion_model == "dense-flow":
         return solve_cmax_dense(ev, generator, spec)
     raise KeyError(f"motion_model {spec.motion_model!r} not supported")

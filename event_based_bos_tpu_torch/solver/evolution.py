@@ -1,13 +1,14 @@
-"""DEBUG observability: the pyramid solve's optimization-evolution video.
+"""DEBUG observability: the optimization-evolution videos.
 
 The port's counterpart of the JAX package's ``solver/evolution.py``.  The
-solve records its parameter trajectory (``PyramidSpec.record_evolution``
-→ ``aux["params_history"]``, set by the ``record_evolution`` key or DEBUG
-logging); this module replays it through the generative model on the
-solve's device, writes one ``opt_prediction`` / ``opt_measured`` /
-``opt_diff`` frame per recorded iterate into a numbered subdirectory per
-solver call, and assembles a video of each.  The whole-ROI solver's
-``render_gml_evolution`` comes with that solver (ROADMAP Queue 1 #12).
+pyramid and the whole-ROI (GML) solves record their parameter trajectory
+(``PyramidSpec.record_evolution`` → ``aux["params_history"]``,
+``GmlSpec.record_evolution`` → ``aux["theta_history"]``, set by the
+``record_evolution`` key or DEBUG logging; first-order methods only);
+this module replays it through the generative model on the solve's
+device, writes one ``opt_prediction`` / ``opt_measured`` / ``opt_diff``
+frame per recorded iterate into a numbered subdirectory per solver call,
+and assembles a video of each.
 """
 
 from __future__ import annotations
@@ -21,9 +22,9 @@ import torch
 from ..ops.gradients import frame_gradients
 from ..ops.image_warp import range_norm
 from .generative import (iwe_cache, measured_increment, params_to_fields,
-                         predict_increment)
+                         predict_increment, scalar_prediction)
 
-__all__ = ["render_pyramid_evolution"]
+__all__ = ["render_pyramid_evolution", "render_gml_evolution"]
 
 logger = logging.getLogger(__name__)
 
@@ -86,5 +87,34 @@ def render_pyramid_evolution(visualizer, frame, ev, aux, spec,
             pred = predict_increment(fields["flow"], gx, gy, gen,
                                      fields.get("pxy"))
             _emit(viz, pred, measured, diff_scale)
+    _finish(viz)
+
+
+def _finish(viz):
     for prefix in ("opt_diff", "opt_prediction", "opt_measured"):
         viz.visualize_sequential_images_as_video(prefix)
+
+
+def render_gml_evolution(visualizer, frame, ev, aux, spec,
+                         iter_cnt: int = 0,
+                         diff_scale=(-0.25, 0.25)) -> None:
+    """Render the whole-ROI solve's recorded scalar trajectory
+    (``aux["theta_history"]``) the same way: each frame is exactly the
+    prediction the optimizer saw (:func:`..generative.scalar_prediction`)
+    beside the ROI's measurement."""
+    if "theta_history" not in aux:
+        return
+    gen = spec.gen
+    viz = _make_child_visualizer(visualizer, iter_cnt)
+    fr = torch.as_tensor(frame).to(dtype=gen.dtype)
+    gx, gy = frame_gradients(fr, ksize=gen.sobel_ksize,
+                             use_log_intensity=gen.use_log_intensity)
+    hist, weights, _wi = iwe_cache(ev, gen)
+    measured = measured_increment(hist, weights, roi=spec.roi)
+    x0, x1, y0, y1 = spec.roi
+    weights_roi = None if weights is None else weights[x0:x1, y0:y1]
+    for theta in aux["theta_history"]:
+        pred, _params = scalar_prediction(theta.to(gen.dtype), gx, gy,
+                                          spec.roi, gen, weights_roi)
+        _emit(viz, pred, measured, diff_scale)
+    _finish(viz)

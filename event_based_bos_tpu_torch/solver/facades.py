@@ -1,11 +1,11 @@
 """Concrete solver facades and the registry the CLI reads.
 
 PyTorch counterpart of the JAX package's ``solver/facades.py``: the
-pyramid facade (``patch_eklt_pyramid2``, the serving path) and the CMax
-facade (``contrast_maximization``) over the port's per-frame estimators.
-The other generative facades (``generative_max_likelihood``,
-``patch_eklt``, ``patch_eklt_dependent``) are registered and raise
-``NotImplementedError`` until ROADMAP Queue 1 #12 ports their solvers.
+whole-ROI solver (``generative_max_likelihood``), the tiled solvers
+(``patch_eklt``, ``patch_eklt_dependent``), the pyramid
+(``patch_eklt_pyramid2``, the serving path) and CMax
+(``contrast_maximization``) over the port's per-frame estimators.  Each
+votes the IWE cache (or CMax's histograms) once a frame on the card.
 """
 
 from __future__ import annotations
@@ -16,10 +16,11 @@ import logging
 import numpy as np
 import torch
 
-from .. import kernels
 from .api import EstimationHandle, SolverBase, fetch_later
 from .cmax import CmaxSpec, estimate_frame_cmax
 from .generative import GenerativeSpec, iwe_cache
+from .gml import GmlSpec, estimate_frame_gml, make_host_tpe_solver
+from .patch import PatchSpec, estimate_frame_dependent, estimate_frame_patch
 from .pyramid import (PyramidSpec, estimate_frame, roi_mask,
                       update_coarse_from_fine)
 
@@ -64,6 +65,7 @@ def _generative_spec(orig_image_shape, solver_config, dtype
         weight_by_inverse_event_hist=bool(
             g.get("weight_loss_by_inverse_event_hist", False)),
         optimize_warp=bool(g.get("optimize_warp", False)),
+        pxpy_as_anglemagn=bool(g.get("px-py_as-angle-magnitude", False)),
         angle_model=bool(g.get("angle_model", False)),
         poisson_model=bool(g.get("poisson_model", False)),
         use_log_intensity=bool(g.get("use_log_intensity", False)),
@@ -73,20 +75,126 @@ def _generative_spec(orig_image_shape, solver_config, dtype
     )
 
 
-def _not_ported(name: str):
-    class _NotPorted(SolverBase):
-        def __init__(self, *args, **kwargs):
-            raise NotImplementedError(
-                f"the {name} solver is not ported yet (ROADMAP Queue 1 #12); "
-                "the port has patch_eklt_pyramid2 and contrast_maximization")
+class GenerativeMaximumLikelihood(SolverBase):
+    """Whole-ROI solver facade: one constant flow over the image.
 
-    _NotPorted.__name__ = _NotPorted.__qualname__ = name
-    return _NotPorted
+    ``optimizer.method`` names the optimizer (``optuna`` reads
+    ``optimizer.sampler``); the samplers' boxes are
+    ``optimizer.parameters``.  ``TPE`` runs the sequential study from the
+    host (one evaluation and one read a trial), its seed drawn from the
+    facade's generator in :meth:`estimate_async`.  The learning rate is the
+    solver's own (0.01), as in the JAX package.
+    """
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        opt = self.slv_config.get("optimizer", {})
+        self.gen = _generative_spec(self.orig_image_shape, self.slv_config,
+                                    self.dtype)
+        bounds = tuple((float(v["min"]), float(v["max"]))
+                       for v in opt.get("parameters", {}).values())
+        method = opt.get("method", "Adam")
+        if method == "optuna":
+            method = opt.get("sampler", method)
+        n_iter = int(opt.get("n_iter", 600))
+        self.spec = GmlSpec(
+            gen=self.gen,
+            roi=(self.crop_xmin, self.crop_xmax, self.crop_ymin,
+                 self.crop_ymax),
+            method=method, n_iter=n_iter, param_bounds=bounds,
+            record_evolution=_evolution_stride(self.slv_config, n_iter))
+        self._tpe_solver = (make_host_tpe_solver(self.spec, self.device)
+                            if method == "TPE" else None)
+
+    def estimate_async(self, events, *args, **kwargs) -> EstimationHandle:
+        """Queue the IWE cache and the solve (the TPE study runs here, on
+        the host); the handle's ``result()`` fetches the flow and, with a
+        visualizer, plots the loss curve and the recorded evolution."""
+        ev = self._to_events(events)
+        frame = self._frame(kwargs)
+        if self._tpe_solver is not None:
+            seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
+                                     generator=self._generator,
+                                     device=self.device))
+            flow, aux = self._tpe_solver(ev, frame, seed)
+        else:
+            flow, aux = estimate_frame_gml(ev, frame, self._generator,
+                                           self.spec, device=self.device)
+        fetch = fetch_later([flow, aux["history"]])
+
+        def finalize() -> np.ndarray:
+            flow_h, history = fetch()
+            if self.visualizer is not None:
+                self.visualizer.visualize_scipy_history(
+                    {"loss": history.numpy()})
+                if "theta_history" in aux:
+                    from .evolution import render_gml_evolution
+
+                    render_gml_evolution(self.visualizer, frame, ev, aux,
+                                         self.spec, self.iter_cnt,
+                                         diff_scale=self._viz_diff_scale())
+            self.iter_cnt += 1
+            return self._orient_flow(flow_h.numpy())
+
+        self.dispatch_cnt += 1
+        handle = EstimationHandle(finalize)
+        handle.loss_history = [aux["history"]]
+        handle.host_reads = aux.get("host_reads", 0) + (
+            self._tpe_solver is not None)  # the TPE seed's draw
+        return handle
 
 
-GenerativeMaximumLikelihood = _not_ported("GenerativeMaximumLikelihood")
-PatchEklt = _not_ported("PatchEklt")
-PatchEkltDependent = _not_ported("PatchEkltDependent")
+class PatchEklt(SolverBase):
+    """Independent tiled solver facade: every patch of the
+    ``patch_eklt.patch_size`` / ``sliding_window`` grid fitted on its own,
+    all patches in one batch (``optimizer.method`` a first-order name; the
+    learning rate is the solver's own, 0.01)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        opt = self.slv_config.get("optimizer", {})
+        pe = self.slv_config.get("patch_eklt", {})
+        self.gen = _generative_spec(self.orig_image_shape, self.slv_config,
+                                    self.dtype)
+        self.spec = PatchSpec(
+            gen=self.gen,
+            roi=(self.crop_xmin, self.crop_xmax, self.crop_ymin,
+                 self.crop_ymax),
+            patch_size=int(pe.get("patch_size", 4)),
+            sliding_window=int(pe.get("sliding_window",
+                                      pe.get("patch_size", 4))),
+            method=opt.get("method", "Adam"),
+            n_iter=int(opt.get("n_iter", 600)),
+            do_event_thresholding=bool(pe.get("do_event_thresholding",
+                                              False)),
+            event_thres=int(pe.get("event_thres", 8)),
+        )
+
+    def _solve(self, ev, frame):
+        return estimate_frame_patch(ev, frame, self._generator, self.spec,
+                                    device=self.device)
+
+    def estimate_async(self, events, *args, **kwargs) -> EstimationHandle:
+        ev = self._to_events(events)
+        flow, _aux = self._solve(ev, self._frame(kwargs))
+        fetch = fetch_later([flow])
+
+        def finalize() -> np.ndarray:
+            self.iter_cnt += 1
+            return self._orient_flow(fetch()[0].numpy())
+
+        self.dispatch_cnt += 1
+        return EstimationHandle(finalize)
+
+
+class PatchEkltDependent(PatchEklt):
+    """Joint tiled solver facade: the whole patch field in one solve, at
+    learning rate 0.05; the poisson model's init is drawn from the
+    facade's generator."""
+
+    def _solve(self, ev, frame):
+        return estimate_frame_dependent(ev, frame, self._generator,
+                                        self.spec, device=self.device)
 
 
 class PatchEkltPyramid2(SolverBase):
@@ -179,12 +287,6 @@ class PatchEkltPyramid2(SolverBase):
         self._flow_fetch_box = ((x0, x1, y0, y1)
                                 if (x1 - x0) * (y1 - y0) < h * w else None)
 
-    def prewarm(self, capacity: int) -> None:
-        """Build and load the kernels before the first frame (on the card);
-        draws nothing from the generator."""
-        if self.device.type == "cuda":
-            kernels.library()
-
     def estimate_async(self, events, *args, **kwargs) -> EstimationHandle:
         """Queue the IWE cache and the pyramid solve (and the warm-start
         feedback for the next frame); the returned handle's ``result()``
@@ -271,12 +373,6 @@ class ContrastMaximization(SolverBase):
             param_bounds=bounds,
             dtype=self.dtype,
         )
-
-    def prewarm(self, capacity: int) -> None:
-        """Build and load the kernels before the first frame (on the card);
-        draws nothing from the generator."""
-        if self.device.type == "cuda":
-            kernels.library()
 
     def estimate_async(self, events, *args, **kwargs) -> EstimationHandle:
         ev = self._to_events(events)

@@ -15,7 +15,10 @@ PyTorch counterpart of the JAX package's ``solver/generative.py``:
   * :func:`predict_increment` — the generative model ``v·∇I`` with the
     per-pixel pattern-shift warp;
   * :func:`dense_objective` — the full objective with the hybrid cost, over
-    the full frame or (``roi_crop``) the margin-expanded ROI box.
+    the full frame or (``roi_crop``) the margin-expanded ROI box;
+  * :func:`scalar_objective` — the whole-ROI objective of 1–4 scalar
+    parameters (:func:`unfold_scalar_params`, :func:`scalar_prediction`),
+    the objective of the GML solver.
 
 ``GenerativeSpec.compute_dtype`` runs the objective's interior (the field
 interpolation, the warp, the prediction) in another dtype, bfloat16 for
@@ -34,19 +37,20 @@ import torch
 from .. import costs as costs_mod
 from ..device import resolve_device
 from ..numerics import abs_
-from ..ops.gradients import poisson_to_flow
+from ..ops.gradients import frame_gradients, poisson_to_flow
 from ..ops.image_warp import (_resize_matrix_np, warp_image_forward,
-                              warp_image_stencil)
+                              warp_image_shift, warp_image_stencil)
 from ..ops.iwe import cached_blur_operators as _cached_blur_operators
 from ..ops.iwe import gaussian_blur
 from ..ops.iwe_cuda import bilinear_vote_cuda, signed_vote_cuda
 from ..types import Events, PatchGrid
 
 __all__ = ["GenerativeSpec", "iwe_cache_from_votes", "iwe_cache",
-           "measured_increment", "dense_operators", "patch_to_dense",
+           "frame_constants", "measured_increment", "dense_operators", "patch_to_dense",
            "patch_to_dense_indexed", "outside_norm_sq", "patch_flow_of",
            "params_to_fields", "predict_increment", "dense_objective",
-           "initialize_params"]
+           "initialize_params", "scalar_param_dim", "unfold_scalar_params",
+           "scalar_prediction", "scalar_objective"]
 
 NORM_EPS = 1e-4  # prediction L2-normalization epsilon
 
@@ -90,6 +94,9 @@ class GenerativeSpec:
     angle_model: bool = False
     poisson_model: bool = True
     use_log_intensity: bool = False
+    # the two warp parameters as (p_magn, p_angle) instead of (p_x, p_y)
+    # (YAML key ``px-py_as-angle-magnitude``); the scalar solvers only
+    pxpy_as_anglemagn: bool = False
     sobel_ksize: int = 3
     cost_weights: Tuple[Tuple[str, object], ...] = (
         ("diff_norm", 1.0),
@@ -172,6 +179,17 @@ def iwe_cache(ev: Events, spec: GenerativeSpec):
     hist = hist.to(spec.dtype)
     return iwe_cache_from_votes(torch.stack([hist, torch.zeros_like(hist)]),
                                 spec)
+
+
+def frame_constants(ev: Events, frame, spec: GenerativeSpec, device):
+    """A frame's constants of the generative solvers on ``device``: the
+    events moved there, the frame's gradients and the IWE cache (one
+    vote).  Returns ``(ev, gx, gy, histogram, weights, weight_inverse)``."""
+    frame = torch.as_tensor(frame).to(device=device, dtype=spec.dtype)
+    gx, gy = frame_gradients(frame, ksize=spec.sobel_ksize,
+                             use_log_intensity=spec.use_log_intensity)
+    ev = Events(*(a.to(device) for a in ev))
+    return (ev, gx, gy) + tuple(iwe_cache(ev, spec))
 
 
 def measured_increment(histogram: torch.Tensor,
@@ -447,3 +465,103 @@ def initialize_params(generator: Optional[torch.Generator],
     elif spec.angle_model:
         params[0] = torch.pi
     return params
+
+
+# ---------------------------------------------------------------------------
+# Scalar (whole-ROI) objective
+# ---------------------------------------------------------------------------
+
+def scalar_param_dim(spec: GenerativeSpec) -> int:
+    return spec.param_dim
+
+
+def _clamped(t: torch.Tensor, i: int) -> torch.Tensor:
+    """``t[i]`` with JAX's rule for a static index past the end: the read
+    is clamped to the last element and its gradient dropped (the scatter
+    that transposes the gather drops an out-of-bounds index).  The poisson
+    model with ``optimize_warp`` has 3 parameters, read as (vx, vy) and a
+    warp pair from ``theta[2:]`` (length 1)."""
+    if i < t.shape[0]:
+        return t[i]
+    return t[-1].detach()
+
+
+def unfold_scalar_params(theta: torch.Tensor, spec: GenerativeSpec):
+    """Scalar parameter vector → ``(v_x, v_y, (p_x, p_y) | None)``.
+
+    The angle model maps ``angle → (sin, cos)``; with
+    ``pxpy_as_anglemagn`` the warp pair is ``(p_magn, p_angle) →
+    (magn·sin, magn·cos)``.  The poisson model means nothing for one
+    scalar velocity and is read as the plain (vx, vy) model, with JAX's
+    clamped indices where the vector is shorter (see :func:`_clamped`).
+    """
+    if spec.angle_model:
+        vx, vy = torch.sin(theta[0]), torch.cos(theta[0])
+        rest = theta[1:]
+    else:
+        vx, vy = theta[0], _clamped(theta, 1)
+        rest = theta[2:]
+    if not spec.optimize_warp:
+        return vx, vy, None
+    a, b = rest[0], _clamped(rest, 1)
+    if spec.pxpy_as_anglemagn:
+        return vx, vy, (a * torch.sin(b), a * torch.cos(b))
+    return vx, vy, (a, b)
+
+
+def scalar_prediction(theta: torch.Tensor, gx: torch.Tensor,
+                      gy: torch.Tensor, roi: Tuple[int, int, int, int],
+                      spec: GenerativeSpec,
+                      weights_roi: Optional[torch.Tensor] = None):
+    """Normalized whole-ROI prediction for a scalar parameter vector: the
+    full-size gradients shifted by (p_x, p_y), cropped to the ROI, dotted
+    with the constant velocity, L2-normalized.  Returns ``(pred_roi, (vx,
+    vy, pxy))``; shared with the evolution renderer."""
+    x0, x1, y0, y1 = roi
+    vx, vy, pxy = unfold_scalar_params(theta, spec)
+    if pxy is not None:
+        shift = torch.stack([pxy[0], pxy[1]])
+        if spec.warp_stencil_radius > 0:
+            # both images in one stencil pass: the same numbers as two
+            gxw, gyw = warp_image_stencil(torch.stack([gx, gy]), shift,
+                                          spec.warp_stencil_radius)
+        else:
+            gxw = warp_image_shift(gx, shift)
+            gyw = warp_image_shift(gy, shift)
+        gxw, gyw = gxw[x0:x1, y0:y1], gyw[x0:x1, y0:y1]
+    else:
+        gxw = gx[x0:x1, y0:y1]
+        gyw = gy[x0:x1, y0:y1]
+    pred = vx * gxw + vy * gyw
+    if spec.no_polarity:
+        pred = abs_(pred)
+    if weights_roi is not None:
+        pred = pred * weights_roi
+    pred = pred / (_safe_frobenius(pred) + NORM_EPS)
+    return pred, (vx, vy, pxy)
+
+
+def scalar_objective(theta: torch.Tensor, measured_roi: torch.Tensor,
+                     gx: torch.Tensor, gy: torch.Tensor,
+                     weight_inverse: torch.Tensor,
+                     roi: Tuple[int, int, int, int], spec: GenerativeSpec,
+                     weights_roi: Optional[torch.Tensor] = None):
+    """Whole-ROI objective over 1–4 scalar parameters: the hybrid cost of
+    :func:`scalar_prediction` against the measurement, with the constant
+    flow and translation over the ROI.  Returns ``(loss, per-term
+    dict)``."""
+    x0, x1, y0, y1 = roi
+    pred, (vx, vy, pxy) = scalar_prediction(theta, gx, gy, roi, spec,
+                                            weights_roi)
+    shape = (2, x1 - x0, y1 - y0)
+    arg = {
+        "prediction": pred,
+        "measurement": measured_roi,
+        "flow": torch.stack([vx, vy])[:, None, None].expand(shape),
+        "weights": weight_inverse[x0:x1, y0:y1],
+        "omit_boundary": True,
+    }
+    if pxy is not None:
+        arg["pxy"] = torch.stack([pxy[0], pxy[1]])[:, None, None].expand(
+            shape)
+    return spec.cost_fn()(arg)

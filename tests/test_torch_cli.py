@@ -190,6 +190,49 @@ def test_port_cli_matches_jax_cli(tmp_path, monkeypatch, data, visualize):
         assert "color_wheel.png" in names
 
 
+#: solver overrides and the injected init of the other generative solvers
+#: on the small scene (the shipped generative_ml section: the poisson model
+#: with the warp pair)
+GENERATIVE = {
+    "generative_max_likelihood": ({}, "gml", lambda: np.array(
+        [0.3, -0.2, 0.05])),
+    "patch_eklt": ({"patch_size": 8, "sliding_window": 8}, None, None),
+    "patch_eklt_dependent": ({"patch_size": 16, "sliding_window": 16},
+                             "dependent", lambda: np.random.default_rng(
+                                 2).uniform(-1, 1, (3, 4, 6))),
+}
+
+
+@pytest.mark.parametrize("method,visualize", [
+    ("generative_max_likelihood", False), ("patch_eklt", False),
+    ("patch_eklt_dependent", False), ("generative_max_likelihood", True)])
+def test_generative_methods_cli_match_jax(tmp_path, monkeypatch, method,
+                                          visualize):
+    """``cli.main … --eval`` with ``solver.method`` set to each of the
+    other generative solvers, from one injected init: the texts and flows
+    as in the plain case; with ``visualize`` the same artifacts (the JAX
+    CLI pipelined, as above)."""
+    patch, solver, make_init = GENERATIVE[method]
+    cfg = small_config(flow_convention="physical")
+    cfg["solver"]["method"] = method
+    cfg["solver"]["patch_eklt"].update(patch)
+    n_frames = 3
+    if visualize:
+        del cfg["visualize"]
+        cfg["evaluation"]["time_list"] = [[0.01, 0.15]]
+        n_frames = 2
+    if solver is not None:
+        inject_init(monkeypatch, tfacades, make_init(), solver)
+        inject_init(monkeypatch, jfacades, make_init(), solver)
+    got = _run_port(tmp_path, "torch", cfg)
+    want = _run_jax(tmp_path, dict(cfg, pipeline=True) if visualize else cfg)
+    _assert_texts_close(got, want, TEXTS, 1e-6)
+    _assert_flows_close(got, want, n_frames)
+    if visualize:
+        names = _assert_artifacts_close(tmp_path, got, want)
+        assert "optimization_steps1.png" in names
+
+
 @pytest.mark.parametrize("top,argv_eval", [
     ({"method": "opencv_flow_two_steps"}, True),
     ({"run_mode": "accumulate"}, False),

@@ -225,18 +225,81 @@ def test_solve_cmax_translation(time_bins):
 
 
 def test_solve_cmax_translation_bounds_and_methods():
+    """Every method family keeps the motion inside the bounds box; the
+    dense model takes first-order methods only and raises ``KeyError`` on
+    any other name, in both packages."""
     evn = moving_edge_events(6.0, -6.0, n=2000, seed=8)
-    _jev, tev = _both_events(evn, "float64")
-    _, tspec = _specs("float64", False, image_size=(H, W),
-                      motion_model="2d-translation", n_iter=30, lr=0.5,
-                      param_bounds=((-2.0, 2.0),) * 4)
-    m, _ = tcmax.solve_cmax_translation(tev, None, tspec)
-    assert (np.abs(np_of(m)) <= 2.0 + 1e-12).all()
-    for method in ("BFGS", "grid", "Nelder-Mead"):
-        _, bad = _specs("float64", False, image_size=(H, W),
-                        motion_model="2d-translation", method=method)
-        with pytest.raises(NotImplementedError):
-            tcmax.solve_cmax_translation(tev, None, bad)
+    jev, tev = _both_events(evn, "float64")
+    for method, n_iter in (("Adam", 30), ("BFGS", 6), ("grid", 16),
+                           ("Nelder-Mead", 20), ("Newton-CG", 3),
+                           ("random", 16), ("TPE", 16)):
+        _, tspec = _specs("float64", False, image_size=(H, W),
+                          motion_model="2d-translation", n_iter=n_iter,
+                          lr=0.5, method=method,
+                          param_bounds=((-2.0, 2.0),) * 4)
+        m, _ = tcmax.solve_cmax_translation(
+            tev, torch.Generator(CPU).manual_seed(0), tspec,
+            x0=torch.tensor([0.5, -0.5], dtype=torch.float64))
+        assert (np.abs(np_of(m)) <= 2.0 + 1e-12).all(), method
+    jspec, tspec = _specs("float64", False, image_size=(H, W),
+                          motion_model="dense-flow", n_iter=4,
+                          coarsest_patch=32, finest_patch=16,
+                          method="BFGS", time_bins=4)
+    with pytest.raises(KeyError):
+        jcmax.solve_cmax_dense(jev, jax.random.PRNGKey(0), jspec)
+    with pytest.raises(KeyError):
+        tcmax.solve_cmax_dense(tev, None, tspec)
+
+
+def _jax_sampler_draws(key, sampler, n, lo, hi):
+    """The JAX package's draws of ``run_sampler`` for the 2-D box."""
+    k1, k2 = jax.random.split(key)
+    n1 = n if sampler == "random" else max(n // 2, 1)
+    draws = {"uniform": np.asarray(jax.random.uniform(
+        k1, (n1, 2), jnp.float32, jnp.asarray(lo, jnp.float32),
+        jnp.asarray(hi, jnp.float32)))}
+    if sampler == "TPE":
+        n2, n_top = n - n1, max(n1 // 10, 1)
+        draws["pick"] = np.asarray(jax.random.randint(k2, (n2,), 0, n_top))
+        draws["noise"] = np.asarray(jax.random.normal(
+            jax.random.fold_in(k2, 1), (n2, 2), jnp.float32))
+    return draws
+
+
+@pytest.mark.parametrize("method,n_iter", [("random", 48), ("grid", 25),
+                                           ("TPE", 48), ("BFGS", 6)])
+def test_translation_samplers_and_scipy_methods_match_jax(method, n_iter):
+    """The translation model (16 bins) in float64.  The samplers' trials
+    are float32 (as in JAX), on the JAX package's draws: the same best trial
+    and losses within 1e-9 relative; ``TPE`` is the two-stage stand-in in
+    both packages.  ``BFGS`` (L-BFGS) from a shared start within 1e-8."""
+    evn = moving_edge_events(4.0, -6.0, n=2000, seed=7)
+    jev, tev = _both_events(evn, "float64")
+    bounds = ((-8.0, 8.0), (-8.0, 8.0))
+    jspec, tspec = _specs("float64", False, image_size=(H, W),
+                          motion_model="2d-translation", n_iter=n_iter,
+                          method=method, param_bounds=bounds)
+    key = jax.random.PRNGKey(3)
+    x0 = np.array([-2.0, 3.0])
+    draws = (_jax_sampler_draws(key, method, n_iter, [-8.0, -8.0],
+                                [8.0, 8.0])
+             if method in ("random", "TPE") else None)
+    jm, jres = jcmax.solve_cmax_translation(jev, key, jspec,
+                                            x0=jnp.asarray(x0))
+    tm, tres = tcmax.solve_cmax_translation(tev, None, tspec,
+                                            x0=torch.as_tensor(x0),
+                                            draws=draws)
+    if method == "BFGS":
+        np.testing.assert_allclose(np_of(tm), np_of(jm), rtol=0, atol=1e-8)
+        np.testing.assert_allclose(np_of(tres.history), np_of(jres.history),
+                                   rtol=1e-8)
+    else:
+        assert tm.dtype == torch.float32
+        assert np.array_equal(np_of(tm), np_of(jm))
+        np.testing.assert_allclose(np_of(tres.history), np_of(jres.history),
+                                   rtol=1e-9)
+    # the grid's spacing is 4 px: within half of it
+    assert np.abs(np_of(tm) - [-4.0, 6.0]).max() <= 2.0
 
 
 DENSE = dict(image_size=(H, W), motion_model="dense-flow", coarsest_patch=32,

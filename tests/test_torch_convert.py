@@ -15,6 +15,7 @@ def _state(dtype=np.float64):
                                     capacity=32)
     return {
         "init_params": rng.normal(size=(3, 2, 3)).astype(dtype),
+        "x0": rng.normal(size=(4,)).astype(dtype),
         "params_per_scale": [rng.normal(size=(3, 2, 3)).astype(dtype),
                              rng.normal(size=(3, 4, 6)).astype(dtype)],
         "cache": (rng.normal(size=(8, 12)).astype(dtype), None,
@@ -33,6 +34,8 @@ def test_round_trip_is_exact(dtype):
     assert tens["events"].valid.dtype == torch.bool
     back = state_to_numpy(tens)
     assert np.array_equal(back["init_params"], state["init_params"])
+    assert np.array_equal(back["x0"], state["x0"])
+    assert tens["x0"].shape == (4,)
     for a, b in zip(back["params_per_scale"], state["params_per_scale"]):
         assert np.array_equal(a, b)
     assert back["cache"][1] is None
@@ -51,6 +54,8 @@ def test_dtype_cast_and_device():
 @pytest.mark.parametrize("bad,err", [
     ({"init_params": np.zeros((2, 3))}, ValueError),
     ({"init_params": np.zeros((3, 2, 3), np.int32)}, TypeError),
+    ({"x0": np.zeros((1, 4))}, ValueError),
+    ({"x0": np.zeros(4, np.int64)}, TypeError),
     ({"cache": (np.zeros((8, 12)), None, np.zeros((8, 11)))}, ValueError),
     ({"events": (np.zeros(4), np.zeros(4), np.zeros(4), np.zeros(3),
                  np.ones(4, bool))}, ValueError),

@@ -245,15 +245,102 @@ def test_solver_texts_are_parsable(tmp_path):
     ({"flow_fetch_dtype": "int8"}, ValueError, "flow_fetch_dtype"),
     ({"generative_ml": {"model_image": "e2vid"}}, NotImplementedError,
      "#14"),
-    ({"method": "generative_max_likelihood"}, NotImplementedError, "#12"),
-    ({"method": "patch_eklt"}, NotImplementedError, "#12"),
-    ({"method": "patch_eklt_dependent"}, NotImplementedError, "#12"),
 ])
 def test_options_not_ported_or_invalid_raise(overrides, exc, match):
     cfg = _config()
     cfg["solver"].update(overrides)
     with pytest.raises(exc, match=match):
         _build(cfg, "torch")
+
+
+#: the three generative facades on the small scene: the generative_ml
+#: section as shipped (the poisson model with the warp pair) for GML and
+#: the joint solver, the angle model for the independent solver
+GENERATIVE = {
+    "generative_max_likelihood": ({}, "gml", lambda: np.array(
+        [0.3, -0.2, 0.05])),
+    "patch_eklt": ({"patch_eklt": dict(patch_size=8, sliding_window=8,
+                                       coarsest_patch_size=16,
+                                       finest_patch_size=8),
+                    "generative_ml": dict(angle_model=True,
+                                          poisson_model=False,
+                                          optimize_warp=True, iwe_sigma=2,
+                                          weight_loss_by_inverse_event_hist=(
+                                              True))}, None, None),
+    "patch_eklt_dependent": ({"patch_eklt": dict(patch_size=16,
+                                                 sliding_window=16,
+                                                 coarsest_patch_size=16,
+                                                 finest_patch_size=8)},
+                             "dependent", lambda: np.random.default_rng(
+                                 2).uniform(-1, 1, (3, 4, 6))),
+}
+
+
+@pytest.mark.parametrize("method", list(GENERATIVE))
+@pytest.mark.parametrize("convention", ["reference", "physical"])
+def test_generative_facades_match_jax(monkeypatch, method, convention):
+    """Two windows through each facade from one injected init, against the
+    JAX facade: the flow (float64, not rounded) within 1e-10, the signs of
+    its zeros equal."""
+    extra, solver, make_init = GENERATIVE[method]
+    cfg = _config(method=method, flow_convention=convention, **extra)
+    if solver is not None:
+        inject_init(monkeypatch, tfacades, make_init(), solver)
+        inject_init(monkeypatch, jfacades, make_init(), solver)
+    windows = _windows(cfg, 2)
+    tsolv = _build(cfg, "torch")
+    tflows = _solve(tsolv, windows)
+    jflows = _solve(_build(cfg, "jax"), windows)
+    for t, j in zip(tflows, jflows):
+        assert t.dtype == j.dtype == np.float64 and t.shape == (2, H, W)
+        np.testing.assert_allclose(t, j, rtol=0, atol=1e-10)
+        assert np.array_equal(np.signbit(t), np.signbit(j))
+        assert np.abs(t).max() > 0
+    assert tsolv.iter_cnt == tsolv.dispatch_cnt == 2
+
+
+def test_gml_facade_reads_the_optimizer_section():
+    """``method: optuna`` takes ``optimizer.sampler``; the boxes are
+    ``optimizer.parameters``; the learning rate is the solver's own."""
+    box = {"min": -2, "max": 2}
+    opt = {"method": "optuna", "sampler": "grid", "n_iter": 81, "lr": 0.5,
+           "parameters": {"v_x": box, "v_y": box, "p_x": box, "p_y": box}}
+    cfg = _config(method="generative_max_likelihood", optimizer=opt,
+                  generative_ml=dict(poisson_model=False,
+                                     optimize_warp=True))
+    solv = _build(cfg, "torch")
+    assert solv.spec.method == "grid" and solv.spec.lr == 0.01
+    assert solv.spec.param_bounds == ((-2.0, 2.0),) * 4
+    (flow,) = _solve(solv, _windows(cfg, 1))
+    assert flow.dtype == np.float32  # the trials are float32
+    # the velocity is one of the 3^4 grid's points, constant over the frame
+    for plane in flow:
+        assert plane.min() == plane.max() and plane[0, 0] in (-2, 0, 2)
+
+
+def test_gml_facade_tpe_draws_its_seed_in_estimate_async(monkeypatch):
+    """``TPE`` runs the sequential study; its seed is one draw of the
+    facade's generator in ``estimate_async``, none in ``prewarm``."""
+    opt = {"method": "optuna", "sampler": "TPE", "n_iter": 12,
+           "parameters": {"p": {"min": -1, "max": 1},
+                          "p_x": {"min": -0.4, "max": 0.4},
+                          "p_y": {"min": -0.4, "max": 0.4}}}
+    cfg = _config(method="generative_max_likelihood", optimizer=opt)
+    solv = _build(cfg, "torch")
+    assert solv.spec.method == "TPE" and solv._tpe_solver is not None
+    seeds = []
+    orig = solv._tpe_solver
+    solv._tpe_solver = lambda ev, fr, seed: seeds.append(seed) or orig(
+        ev, fr, seed)
+    before = solv._generator.get_state()
+    solv.prewarm(4096)
+    assert torch.equal(solv._generator.get_state(), before)
+    (flow,) = _solve(solv, _windows(cfg, 1))
+    g = torch.Generator(CPU)
+    g.set_state(before)
+    assert seeds == [int(torch.randint(0, 2 ** 31 - 1, (1,), generator=g))]
+    assert torch.equal(solv._generator.get_state(), g.get_state())
+    assert np.isfinite(flow).all()
 
 
 @pytest.mark.parametrize("overrides", [

@@ -85,9 +85,10 @@ def test_entry_points_without_device_raise_on_a_cpu_only_machine():
         pytest.skip("a GPU is present: the default device is valid")
     from event_based_bos_tpu_torch import events_from_ndarray, resolve_device
     from event_based_bos_tpu_torch.convert import state_from_numpy
-    from event_based_bos_tpu_torch.solver import (CmaxSpec, GenerativeSpec,
-                                                  PyramidSpec, estimate_frame,
-                                                  estimate_frame_cmax)
+    from event_based_bos_tpu_torch.solver import (
+        CmaxSpec, GenerativeSpec, GmlSpec, PatchSpec, PyramidSpec,
+        estimate_frame, estimate_frame_cmax, estimate_frame_dependent,
+        estimate_frame_gml, estimate_frame_patch)
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device()
@@ -106,6 +107,15 @@ def test_entry_points_without_device_raise_on_a_cpu_only_machine():
                                        [3.0, 4.0, 1.0, -1.0]]), device="cpu")
     with pytest.raises(RuntimeError):
         estimate_frame_cmax(ev, None, None, CmaxSpec(image_size=(16, 16)))
+    gen = GenerativeSpec(image_size=(16, 16))
+    frame = np.zeros((16, 16))
+    with pytest.raises(RuntimeError):
+        estimate_frame_gml(ev, frame, None, GmlSpec(gen=gen,
+                                                    roi=(0, 16, 0, 16)))
+    for estimator in (estimate_frame_patch, estimate_frame_dependent):
+        with pytest.raises(RuntimeError):
+            estimator(ev, frame, None, PatchSpec(gen=gen,
+                                                 roi=(0, 16, 0, 16)))
     assert resolve_device("cpu").type == "cpu"
 
 

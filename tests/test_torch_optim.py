@@ -111,8 +111,10 @@ def test_bounds_project_iterates():
 
 def test_make_optimizer_methods():
     assert isinstance(topt.make_optimizer("Adam", 0.1, 10, 0.1), topt.Adam)
-    with pytest.raises(NotImplementedError):
-        topt.make_optimizer("SGD", 0.1, 10, 0.1)
+    assert isinstance(topt.make_optimizer("SGD", 0.1, 10, 0.1), topt.SGD)
+    assert isinstance(topt.make_optimizer("ASGD", 0.1, 10, 0.1), topt.SGD)
+    with pytest.raises(TypeError, match="Rprop"):
+        topt.make_optimizer("Rprop", 0.1, 10, 0.1)
     with pytest.raises(KeyError):
         topt.make_optimizer("Nope", 0.1, 10, 0.1)
     opt = topt.make_optimizer("Adam", 0.1, 10, 0.5)

@@ -110,18 +110,39 @@ def pyramid_init(cfg, seed=7):
     return init
 
 
-def inject_init(monkeypatch, facades_module, init):
-    """Make ``facades_module``'s solves start from ``init`` on every cold
-    frame: its ``estimate_frame`` name is wrapped to pass ``init_params``
-    (a warm-started frame keeps its previous-frame start)."""
-    orig = facades_module.estimate_frame
+#: the estimator each facade calls and the keyword that pins its init
+_INIT_HOOKS = {"pyramid": ("estimate_frame", "init_params"),
+               "gml": ("estimate_frame_gml", "x0"),
+               "dependent": ("estimate_frame_dependent", "init_params")}
 
-    def estimate_frame(*args, **kwargs):
+
+def inject_init(monkeypatch, facades_module, init, solver="pyramid"):
+    """Make ``facades_module``'s solves start from ``init`` on every cold
+    frame: the estimator name of ``solver`` (``pyramid``: the coarsest
+    scale; ``gml``: the parameter vector; ``dependent``: the joint field)
+    is wrapped to pass the init (a warm-started frame keeps its
+    previous-frame start).  The JAX package's joint facade binds its
+    estimator when the class is made, so there the joint solver's
+    ``initialize_params`` (looked up at call time) returns ``init``."""
+    if solver == "dependent" and facades_module.__name__.startswith(
+            "event_based_bos_tpu."):
+        import jax.numpy as jnp
+
+        import event_based_bos_tpu.solver.generative as jgen
+
+        monkeypatch.setattr(
+            jgen, "initialize_params",
+            lambda key, shape, spec: jnp.asarray(init, spec.dtype))
+        return
+    name, keyword = _INIT_HOOKS[solver]
+    orig = getattr(facades_module, name)
+
+    def estimator(*args, **kwargs):
         if kwargs.get("prev_params") is None:
-            kwargs["init_params"] = init
+            kwargs[keyword] = init
         return orig(*args, **kwargs)
 
-    monkeypatch.setattr(facades_module, "estimate_frame", estimate_frame)
+    monkeypatch.setattr(facades_module, name, estimator)
 
 
 @contextlib.contextmanager

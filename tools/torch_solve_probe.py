@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Probe of the PyTorch port's solve paths on a GPU.
 
-    python3 tools/torch_solve_probe.py [--path pyramid|cmax] [--seeds 8]
-                                       [--restrict [--roi-norm-stride 4]]
-                                       [--compute-dtype bfloat16|float32]
-                                       [--out FILE]
+    python3 tools/torch_solve_probe.py
+        [--path pyramid|cmax|gml|patch|dependent] [--seeds 8]
+        [--restrict [--roi-norm-stride 4]]
+        [--compute-dtype bfloat16|float32] [--out FILE]
 
 On the ``chip_smoke.py`` workload (720×1280, 2^19 events), after one
 warm-up frame, for ``--path pyramid`` (the main path: 64→8 patches, 600
@@ -12,12 +12,18 @@ iterations) or ``--path cmax`` (the CMax cell: ``CmaxSpec``'s defaults with
 the bench ROI, 260 Adam steps); ``--restrict`` solves the pyramid on the
 margin-expanded ROI box (``restrict_to_roi``, outside-norm stride
 ``--roi-norm-stride``) and ``--compute-dtype`` runs its objective's
-interior in that dtype:
+interior in that dtype.  ``--path gml``, ``patch`` and ``dependent`` solve
+``chip_smoke.py``'s phase-11 scene (720×1280, uniform displacement, 2^19
+events) with phase 11's specs: GML with Adam (600 steps, 4 parameters),
+PatchEklt and PatchEkltDependent at the facade's defaults (4/2 patches,
+600 Adam steps).  Per path:
 
-* EPE against the synthetic ground truth and ms/frame (CUDA events) over
-  ``--seeds`` frames — random initializations
-  (``torch.Generator(...).manual_seed``) for the pyramid; the CMax solve
-  starts from flow 0, so its frames repeat;
+* the accuracy and ms/frame (CUDA events) over ``--seeds`` frames — EPE
+  against the synthetic ground truth for the pyramid (random
+  initializations, ``torch.Generator(...).manual_seed``) and CMax (from
+  flow 0, so its frames repeat); for the other solvers the mean flow's
+  cosine with the scene's −du (the joint solver's poisson init drawn from
+  the seed);
 * one frame under ``torch.profiler``: CUDA kernels launched (per frame and
   per Adam step), their summed device time, the device's idle share of an
   unprofiled frame, the kernels that take the most device time, and the
@@ -45,8 +51,8 @@ def main(argv=None):
     from torch.profiler import ProfilerActivity, profile
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("pyramid", "cmax"),
-                    default="pyramid")
+    ap.add_argument("--path", choices=("pyramid", "cmax", "gml", "patch",
+                                       "dependent"), default="pyramid")
     ap.add_argument("--seeds", type=int, default=8)
     ap.add_argument("--restrict", action="store_true",
                     help="pyramid: restrict_to_roi")
@@ -59,8 +65,10 @@ def main(argv=None):
         raise SystemExit("torch_solve_probe: needs a CUDA device")
 
     from event_based_bos_tpu_torch import events_from_ndarray
-    from event_based_bos_tpu_torch.solver import (GenerativeSpec, PyramidSpec,
-                                                  cmax, estimate_frame_cmax)
+    from event_based_bos_tpu_torch.solver import (
+        GenerativeSpec, PyramidSpec, cmax, estimate_frame_cmax,
+        estimate_frame_dependent, estimate_frame_gml, estimate_frame_patch,
+        facades)
     from event_based_bos_tpu_torch.solver.generative import iwe_cache
     from event_based_bos_tpu_torch.solver.pyramid import (estimate_frame,
                                                           roi_mask,
@@ -89,6 +97,36 @@ def main(argv=None):
 
         def solve(_seed):
             return estimate_frame_cmax(ev, None, None, cspec, device=dev)[0]
+    elif args.path in ("gml", "patch", "dependent"):
+        frame, scene = cs.other_solvers_scene()
+        ev = events_from_ndarray(scene, capacity=cs.CAPACITY, device=dev)
+        frame_t = torch.as_tensor(frame, dtype=torch.float32, device=dev)
+        steps = cs.N_ITER
+
+        def epe_of(flow, _gt):
+            return cs.direction_cosine(flow)
+
+        if args.path == "gml":
+            gspec = cs.gml_spec("Adam", cs.N_ITER)
+            x0 = torch.tensor([0.1, -0.1, 0.0, 0.0], device=dev)
+
+            def solve(_seed):
+                return estimate_frame_gml(ev, frame_t, None, gspec, x0=x0,
+                                          device=dev)[0]
+        else:
+            method = {"patch": "patch_eklt",
+                      "dependent": "patch_eklt_dependent"}[args.path]
+            pspec = facades.collections[method](
+                (cs.H, cs.W), (cs.H, cs.W),
+                solver_config=cs.other_solver_config(method),
+                device=dev).spec
+            estimator = {"patch": estimate_frame_patch,
+                         "dependent": estimate_frame_dependent}[args.path]
+
+            def solve(seed):
+                return estimator(ev, frame_t,
+                                 torch.Generator(dev).manual_seed(seed),
+                                 pspec, device=dev)[0]
     else:
         steps = sum(scale_iterations(spec))
         epe_of = cs.accuracy_epe
@@ -135,6 +173,8 @@ def main(argv=None):
         "roi_norm_stride": args.roi_norm_stride if args.restrict else None,
         "compute_dtype": args.compute_dtype,
         "seeds": args.seeds,
+        "accuracy_metric": ("cosine with -du" if args.path in (
+            "gml", "patch", "dependent") else "EPE px"),
         "epe_px": epe,
         "epe_median_px": statistics.median(epe),
         "epe_zero_flow_px": epe_of(np.zeros((2, cs.H, cs.W)), gt_flow),
