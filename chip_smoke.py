@@ -149,7 +149,30 @@ failure:
    for the IWE cache and one for the event mask; the first frame
    bit-identical to ``estimate_frame_gml`` on the same inputs and
    generator state; its flow one constant over the frame); small float64
-   scenes of every new solver on the card and on the CPU within 1e-6.
+   scenes of every new solver on the card and on the CPU within 1e-6;
+12. the remaining ops and data at full width, on phase 6's loader (three
+   consecutive windows of 523,264 events on integer sensor coordinates)
+   with ``configs/hot_plate1.yaml``'s ``solver.filter.parameters`` and
+   ``params_openpiv``: the exact device BAF with the time map carried,
+   float64 keep masks and maps bit-identical to the native runtime, float32
+   decisions differing only within 4 float32 ulps of ``BAF_dt``; the fast
+   BAF and the flicker split card vs CPU bit for bit; HOT (a hot pixel
+   injected) bit-identical to the native runtime at one vote launch;
+   ``preprocess`` of ``Events`` with ``filters: [BAF, HOT]`` leaving the
+   live events of ``preprocess`` of the array; the PIV on a full-width
+   particle pair moved by (2.3, −1.7) px (64→8 over the 720×640 ROI: mean
+   error a component < 0.1 px over the ROI interior) and a small float64
+   scene card vs CPU ≤ 1e-9; ``cli.main`` with ``estimation_method:
+   openpiv`` (outputs under ``build/chip_smoke_piv/``: two vote launches a
+   pair, each histogram bit-identical to the plain vote, every flow and
+   histogram PNG decoding at 720×1280) and one ``--eval`` frame with the
+   PIV GT (its error texts); ``model_image: e2vid`` on an E2VID sequence
+   written under ``build/chip_smoke_e2vid/`` (60 iterations, bit-identical
+   to ``model_image: current`` on the decoded PNG); the voxel grid (5
+   bins), the discretized volume (B = 10), the time image, the IWA (3 vote
+   launches) and the bilinear, max, upwind and Burgers flow voxels (5
+   bins), card vs CPU ≤ 1e-5 relative; each path's ms printed beside the
+   card's name and power limit.
 
 Prints the whole run's seconds, a ``kernels`` JSON line, the
 ``nvidia-smi`` line, and last
@@ -2596,6 +2619,555 @@ def run_other_solvers(device, loader, gt):
     return {"votes": votes, "results": results, "seconds": seconds}
 
 
+PIV_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke_piv")
+E2VID_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "chip_smoke_e2vid")
+PIV_SHIFT = (2.3, -1.7)      # phase 12's particle displacement (row, col) px
+PIV_LIMIT = 0.1              # px, mean error a component over the interior
+#: the event-grid PIV's section (no shipped config has one)
+PIV_EVENTS = {"integration_time": 0.01, "frame_distance": 0.01,
+              "do_inversion": True}
+
+
+def hot_plate_section(*keys):
+    """A section of ``configs/hot_plate1.yaml`` (``keys`` down the tree)."""
+    import yaml
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(repo, "configs", "hot_plate1.yaml")) as f:
+        section = yaml.safe_load(f)
+    for key in keys:
+        section = section[key]
+    return section
+
+
+def loader_windows(loader, frames=(1, 2, 3)):
+    """The loader's events between frame ``i`` and ``i + 1`` for each
+    ``i`` (consecutive windows), ``(n, 4)`` float64."""
+    out = []
+    for i in frames:
+        _im, t1 = loader.load_image(i)
+        _im, t2 = loader.load_image(i + 1)
+        out.append(loader.load_event(max(loader.time_to_index(t1), 0),
+                                     min(loader.time_to_index(t2),
+                                         len(loader))))
+    return out
+
+
+def device_ms(fn, warmup=False):
+    """One call of ``fn`` between two synchronisations (after one untimed
+    call with ``warmup``): its result and its CUDA-event time in ms (the
+    host's work inside it included)."""
+    import torch
+
+    if warmup:
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def check_device_baf(device, windows, params):
+    """The exact device BAF over three consecutive windows with the time
+    map carried: a float64 record bit-identical to the native runtime
+    (keep masks and maps), a float32 record whose decisions differ from
+    the float64 ones only where ``t − last`` lies within 4 float32 ulps of
+    the timestamps of ``BAF_dt`` (the float64 filter's decision flips
+    between ``BAF_dt ∓ 4 ulp``).  Returns the times."""
+    import numpy as np
+    import torch
+
+    from event_based_bos_tpu_torch import runtime
+    from event_based_bos_tpu_torch.ops import filters
+    from event_based_bos_tpu_torch.types import (bucket_capacity,
+                                                 events_from_ndarray)
+
+    dt, k, s = (params["BAF_dt"], params["BAF_ksize"],
+                params["BAF_num_support_event"])
+    ulp = float(np.spacing(np.float32(max(np.abs(w[:, 2]).max()
+                                          for w in windows))))
+    tol = 4 * ulp
+    maps = {"native": None, "f64": None, "f32": None}
+    rows = []
+    for i, arr in enumerate(windows):
+        n = len(arr)
+        cap = bucket_capacity(n)
+        ev64 = events_from_ndarray(arr, capacity=cap, dtype=torch.float64,
+                                   device=device)
+        ev32 = events_from_ndarray(arr, capacity=cap, device=device)
+        prev64 = maps["f64"]
+        t0 = time.perf_counter()
+        nkeep, maps["native"] = runtime.baf_filter(
+            arr, (H, W), dt, k, s, time_map=maps["native"])
+        native_ms = 1e3 * (time.perf_counter() - t0)
+        (out64, maps["f64"]), ms64 = device_ms(
+            lambda: filters.background_activity_filter(
+                ev64, (H, W), dt, k, s, time_map=prev64))
+        prev32 = maps["f32"]
+        (out32, maps["f32"]), ms32 = device_ms(
+            lambda: filters.background_activity_filter(
+                ev32, (H, W), dt, k, s, time_map=prev32))
+        keep64 = out64.valid.cpu().numpy()[:n]
+        same_keep = np.array_equal(keep64, nkeep)
+        same_map = np.array_equal(maps["f64"].cpu().numpy(), maps["native"])
+        lo, _ = filters.background_activity_filter(ev64, (H, W), dt - tol, k,
+                                                   s, time_map=prev64)
+        hi, _ = filters.background_activity_filter(ev64, (H, W), dt + tol, k,
+                                                   s, time_map=prev64)
+        keep32 = out32.valid.cpu().numpy()[:n]
+        differ = keep32 != keep64
+        boundary = (lo.valid != hi.valid).cpu().numpy()[:n]
+        rows.append(dict(window=i, events=n, kept=int(nkeep.sum()),
+                         native_ms=native_ms, device_f64_ms=ms64,
+                         device_f32_ms=ms32,
+                         f32_differing=int(differ.sum()),
+                         f32_within_4ulp=int(boundary.sum())))
+        print(f"baf: window {i}: {n} events, kept {int(nkeep.sum())}; "
+              f"float64 keep/map bit-identical to the native runtime "
+              f"{same_keep}/{same_map}; float32 decisions differing "
+              f"{int(differ.sum())} (events within 4 ulp = {tol:.3e} s of "
+              f"BAF_dt: {int(boundary.sum())}); device {ms64:.2f} ms "
+              f"(float64), {ms32:.2f} ms (float32), native host "
+              f"{native_ms:.2f} ms")
+        assert same_keep and same_map, "the device BAF differs from native"
+        assert not (differ & ~boundary).any(), \
+            "a float32 BAF decision differs away from BAF_dt"
+    return rows
+
+
+def check_filters(device, windows, params):
+    """Phase 12's filters: the exact BAF (:func:`check_device_baf`), the
+    fast BAF and the flicker split card vs the port's CPU route bit for
+    bit, HOT (a hot pixel injected) bit-identical to the native runtime
+    at one vote launch a call.  Returns ``(results, HOT launches)``."""
+    import numpy as np
+    import torch
+
+    from event_based_bos_tpu_torch import kernels, runtime
+    from event_based_bos_tpu_torch.ops import filters
+    from event_based_bos_tpu_torch.types import (bucket_capacity,
+                                                 events_from_ndarray)
+
+    results = {"baf": check_device_baf(device, windows, params)}
+    arr = windows[0].copy()
+    arr[:400, :2] = (H // 3, W // 3)  # a hot pixel
+    cap = bucket_capacity(len(arr))
+    dev = events_from_ndarray(arr, capacity=cap, device=device)
+    cpu = events_from_ndarray(arr, capacity=cap, device="cpu")
+    fast, fast_ms = device_ms(lambda: filters.background_activity_filter_fast(
+        dev, (H, W), params["BAF_dt"], params["BAF_ksize"],
+        params["BAF_num_support_event"]), warmup=True)
+    fast_cpu = filters.background_activity_filter_fast(
+        cpu, (H, W), params["BAF_dt"], params["BAF_ksize"],
+        params["BAF_num_support_event"])
+    same_fast = torch.equal(fast.valid.cpu(), fast_cpu.valid)
+    (linked, _unlinked), flicker_ms = device_ms(
+        lambda: filters.flicker_filter(dev, 0.01), warmup=True)
+    linked_cpu, _ = filters.flicker_filter(cpu, 0.01)
+    same_flicker = torch.equal(linked.valid.cpu(), linked_cpu.valid)
+    filters.hot_pixel_filter(dev, (H, W), params["HOT_thresh"])  # warm-up
+    kernels.reset_launches()
+    hot, hot_ms = device_ms(lambda: filters.hot_pixel_filter(
+        dev, (H, W), params["HOT_thresh"]))
+    hot_launches = kernels.launches["hat_vote_image"]
+    keep = runtime.hot_pixel_filter(arr, (H, W), params["HOT_thresh"])
+    same_hot = np.array_equal(hot.valid.cpu().numpy()[:len(arr)], keep)
+    print(f"filters: fast BAF card vs CPU bit-identical {same_fast} "
+          f"({int(fast.count())} kept, {fast_ms:.2f} ms); flicker "
+          f"bit-identical {same_flicker} ({int(linked.count())} linked, "
+          f"{flicker_ms:.2f} ms); HOT keep bit-identical to the native "
+          f"runtime {same_hot} ({len(arr) - int(keep.sum())} dropped, "
+          f"{hot_ms:.3f} ms, {hot_launches} vote launch)")
+    assert same_fast and same_flicker and same_hot
+    assert hot_launches == 1, hot_launches
+    assert len(arr) - int(keep.sum()) >= 400
+    results.update(fast_ms=fast_ms, flicker_ms=flicker_ms, hot_ms=hot_ms)
+    return results, hot_launches
+
+
+def check_preprocess(device, windows, params):
+    """``solv.preprocess(Events)`` with ``filters: [BAF, HOT]`` on
+    hot_plate1's solver section leaves the live events that
+    ``preprocess(ndarray)`` leaves (two facades, the BAF map carried over
+    the windows in each).  Returns the vote launches."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from event_based_bos_tpu_torch import kernels, solver
+    from event_based_bos_tpu_torch.types import (bucket_capacity,
+                                                 events_from_ndarray)
+    from event_based_bos_tpu_torch.utils.config import propagate_config
+
+    config = serving_config("preprocess")
+    config["solver"]["filter"] = {"filters": ["BAF", "HOT"],
+                                  "parameters": dict(params)}
+    propagate_config(config)
+    d = config["data"]
+    solvers = [solver.collections[config["solver"]["method"]](
+        (H, W), (d["crop_height"], d["crop_width"]),
+        solver_config=copy.deepcopy(config["solver"]), device=device)
+        for _ in range(2)]
+    kernels.reset_launches()
+    same = []
+    for arr in windows:
+        ev = events_from_ndarray(arr, capacity=bucket_capacity(len(arr)),
+                                 dtype=torch.float64, device=device)
+        dev, _ = solvers[0].preprocess(ev)
+        host, _ = solvers[1].preprocess(arr)
+        same.append(np.array_equal(dev.to_numpy().astype(np.float32),
+                                   host.to_numpy()))
+    votes = kernels.launches["hat_vote_image"]
+    print(f"preprocess [BAF, HOT]: Events vs ndarray same live events "
+          f"{same} over {len(windows)} windows, {votes} vote launches")
+    assert all(same), "the device pipeline differs from the host pipeline"
+    assert votes == len(windows), votes
+    return votes
+
+
+def render_particles(pos, shape, sigma=1.2):
+    """The particle image of ``tests/test_ops_flow.py::TestPIVAccuracy``
+    (every pixel within 5 px of a particle on each axis gets its
+    Gaussian), scattered particle by particle's 10×10 neighbourhood."""
+    import numpy as np
+
+    img = np.zeros(shape)
+    offs = np.arange(-5, 6)
+    r0 = np.floor(pos[:, 0]).astype(int)
+    c0 = np.floor(pos[:, 1]).astype(int)
+    for dr in offs:
+        for dc in offs:
+            rr, cc = r0 + dr, c0 + dc
+            m = ((np.abs(rr - pos[:, 0]) < 5) & (np.abs(cc - pos[:, 1]) < 5)
+                 & (rr >= 0) & (rr < shape[0]) & (cc >= 0) & (cc < shape[1]))
+            v = np.exp(-((rr - pos[:, 0]) ** 2 + (cc - pos[:, 1]) ** 2)
+                       / (2 * sigma ** 2))
+            np.add.at(img, (rr[m], cc[m]), v[m])
+    return 255.0 * img / max(img.max(), 1e-9)
+
+
+def particle_pair(shape, shift, density=900 / (128 * 160), seed=3):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = int(density * shape[0] * shape[1])
+    pos = np.stack([rng.uniform(4, shape[0] - 4, n),
+                    rng.uniform(4, shape[1] - 4, n)], 1)
+    return (render_particles(pos, shape),
+            render_particles(pos + np.asarray(shift), shape))
+
+
+def check_piv(device):
+    """The PIV at full width with hot_plate1's ``params_openpiv`` (64→8
+    over the 720×640 ROI) on a particle pair moved by ``PIV_SHIFT``: mean
+    error a component over the ROI interior (32 px in) below
+    ``PIV_LIMIT``; a small float64 scene card vs CPU within 1e-9."""
+    import numpy as np
+    import torch
+
+    from event_based_bos_tpu_torch import piv
+    from event_based_bos_tpu_torch.utils.config import (PivSettings,
+                                                        load_config_openpiv)
+
+    roi = dict(zip(("xmin", "xmax", "ymin", "ymax"), ROI))
+    settings = load_config_openpiv(hot_plate_section("params_openpiv"), roi,
+                                   ".")
+    t0 = time.perf_counter()
+    a, b = particle_pair((H, W), PIV_SHIFT)
+    print(f"piv: particle pair {H}x{W} ({time.perf_counter() - t0:.1f} s "
+          f"to render), windows {settings.windowsizes}, overlap "
+          f"{settings.overlap}, ROI {settings.roi}")
+    piv.piv_multipass(a, b, settings, device=device)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flow = piv.piv_multipass(a, b, settings, device=device)
+    ms = 1e3 * (time.perf_counter() - t0)
+    x0, x1, y0, y1 = ROI
+    inner = (slice(x0 + 32, x1 - 32), slice(y0 + 32, y1 - 32))
+    err_r = float(np.abs(flow[1][inner] - PIV_SHIFT[0]).mean())
+    err_c = float(np.abs(flow[0][inner] - PIV_SHIFT[1]).mean())
+    sa, sb = particle_pair((128, 160), (1.3, -0.6), seed=5)
+    small = PivSettings(windowsizes=(64, 32, 16), overlap=(32, 16, 8))
+    card = piv.piv_multipass(sa, sb, small, device=device,
+                             dtype=torch.float64)
+    cpu = piv.piv_multipass(sa, sb, small, device="cpu", dtype=torch.float64)
+    small_err = float(np.abs(card - cpu).max())
+    print(f"piv: {ms:.1f} ms a pair (host clock, one upload and one fetch); "
+          f"mean error over the ROI interior row {err_r:.4f} px, col "
+          f"{err_c:.4f} px (limit {PIV_LIMIT}); small float64 scene card vs "
+          f"CPU max|diff| {small_err:.3e}")
+    assert flow.shape == (2, H, W) and np.isfinite(flow).all()
+    assert err_r < PIV_LIMIT and err_c < PIV_LIMIT, (err_r, err_c)
+    assert small_err <= 1e-9, small_err
+    return dict(ms=ms, err_row=err_r, err_col=err_c, small_err=small_err)
+
+
+def piv_config(name, **top):
+    """Phase 6's config with hot_plate1's ``params_openpiv``, the
+    event-grid section, visualizing, in its own directory under
+    ``PIV_DIR``."""
+    from event_based_bos_tpu_torch.utils.config import propagate_config
+
+    config = serving_config(name)
+    config.update(output_dir=os.path.join(PIV_DIR, name), visualize=True,
+                  params_openpiv=hot_plate_section("params_openpiv"),
+                  params_openpiv_events=dict(PIV_EVENTS))
+    config.update(top)
+    propagate_config(config)
+    return config
+
+
+def run_event_grid_piv(device):
+    """``cli.main([..., "--eval"])`` with ``estimation_method: openpiv`` on
+    the SYNTHETIC loader at full width: two vote launches a pair, each
+    histogram bit-identical to the plain vote, every flow and histogram
+    PNG decoding at H×W.  Returns ``(launches, ms a pair)``."""
+    import glob
+    import logging
+    import shutil
+
+    import torch
+    import yaml
+
+    from event_based_bos_tpu_torch import cli, kernels
+    from event_based_bos_tpu_torch.ops import iwe, iwe_cuda
+
+    config = piv_config("event_grids", estimation_method="openpiv")
+    config["evaluation"]["time_list"] = [[0.01, 0.15]]
+    out = config["output_dir"]
+    shutil.rmtree(out, ignore_errors=True)
+    path = out + ".yaml"
+    os.makedirs(PIV_DIR, exist_ok=True)
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f)
+    hists = []
+    vote = iwe.create_image_from_events
+
+    def checked(ev, *args, **kwargs):
+        image = vote(ev, *args, **kwargs)
+        plain = iwe_cuda.hat_vote_plain(
+            ev.x.to(torch.float32), ev.y.to(torch.float32), None, (H, W),
+            valid=ev.valid, nudge=True)
+        hists.append(torch.equal(image, plain))
+        return image
+
+    iwe.create_image_from_events = checked
+    root_log = logging.getLogger()
+    handlers, level = root_log.handlers[:], root_log.level
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(["--config_file", path, "--eval", "--log", "warning"],
+                      device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        votes = kernels.launches["hat_vote_image"]
+    finally:
+        iwe.create_image_from_events = vote
+        for h in root_log.handlers:
+            if h not in handlers:
+                h.close()
+        root_log.handlers[:] = handlers
+        root_log.setLevel(level)
+    pngs = sorted(os.path.basename(p) for p in glob.glob(
+        os.path.join(out, "*.png")))
+    pairs = sum(n.startswith("event_flow_openpiv") for n in pngs)
+    checked_pngs = [n for n in pngs if n.startswith(("event_flow_openpiv",
+                                                     "hist"))]
+    check_pngs(out, checked_pngs)
+    print(f"event-grid piv: rc {rc}, {pairs} pairs in {wall:.1f} s (with "
+          f"the loader's generation), vote launches {votes}, histograms "
+          f"bit-identical to the plain vote {hists}; PNGs {pngs}")
+    assert rc == 0 and pairs >= 1, (rc, pngs)
+    assert votes == 2 * pairs, (votes, pairs)
+    assert len(hists) == 2 * pairs and all(hists), hists
+    assert sum(n.startswith("hist") for n in pngs) == 2 * pairs, pngs
+    return votes, 1e3 * wall / pairs
+
+
+def run_piv_ground_truth(device, loader):
+    """One ``--eval`` pyramid frame (60 iterations) with ``method:
+    openpiv``: the PIV GT on the card, both error texts written."""
+    import numpy as np
+
+    from event_based_bos_tpu_torch.utils import read_flow_error_text
+
+    config = piv_config("piv_gt", method="openpiv", visualize=False)
+    config["evaluation"]["time_list"] = [[0.01, 0.11]]
+    config["solver"]["optimizer"]["n_iter"] = 60
+    solv, launches, _callers, _first, ms, _lines = drive_serving(
+        config, loader, device, None)
+    epe = {}
+    for name in SERVE_TEXTS:
+        arrays, stats = read_flow_error_text(
+            os.path.join(config["output_dir"], name))
+        assert stats["EPE"]["n_data"] == 1 and np.isfinite(
+            arrays["EPE"]).all(), (name, arrays)
+        epe[name] = float(arrays["EPE"][0])
+    print(f"piv GT: 1 pyramid frame (60 iterations) with method: openpiv, "
+          f"{ms:.1f} ms; EPE against the PIV GT {epe}; launches {launches}")
+    assert solv.iter_cnt == 1
+    return epe
+
+
+def run_e2vid(device, loader):
+    """``model_image: e2vid``: an E2VID sequence written under
+    ``E2VID_DIR`` from the loader's frames (8-bit PNGs, their times, an
+    events CSV), the pyramid (60 iterations) with ``generative_ml.e2vid``
+    pointing at it, bit-identical to ``model_image: current`` fed the
+    decoded PNG at the frame's time (the loader's image index)."""
+    import copy
+    import shutil
+
+    import cv2
+    import numpy as np
+
+    from event_based_bos_tpu_torch import solver
+    from event_based_bos_tpu_torch.data.e2vid import E2vidDataLoader
+
+    seq = os.path.join(E2VID_DIR, "E2VID", "seq")
+    shutil.rmtree(E2VID_DIR, ignore_errors=True)
+    os.makedirs(seq)
+    times = []
+    for i in range(loader.num_images):
+        image, t = loader.load_image(i)
+        assert cv2.imwrite(os.path.join(seq, f"frame_{i:010d}.png"),
+                           np.clip(image, 0, 255).astype(np.uint8))
+        times.append(t)
+    np.savetxt(os.path.join(seq, "timestamps.txt"), times)
+    with open(os.path.join(seq, "events.csv"), "w") as f:
+        for x, y, t, p in loader.load_event(0, 1000):
+            f.write(f"{int(y)},{int(x)},{int(p > 0)},{t:.9f}\n")
+    reader = E2vidDataLoader(config={"root": E2VID_DIR})
+    reader.set_sequence("seq")
+    flows = {}
+    (arr,) = loader_windows(loader, (2,))
+    _im, t2 = loader.load_image(2)
+    for mode in ("e2vid", "current"):
+        config = serving_config("e2vid_" + mode)
+        gml = config["solver"]["generative_ml"]
+        gml["model_image"] = mode
+        if mode == "e2vid":
+            gml["e2vid"] = {"root": E2VID_DIR, "dataset": "E2VID",
+                            "sequence": "seq"}
+        config["solver"]["optimizer"]["n_iter"] = 60
+        d = config["data"]
+        solv = solver.collections[config["solver"]["method"]](
+            (H, W), (d["crop_height"], d["crop_width"]),
+            solver_config=copy.deepcopy(config["solver"]), device=device)
+        ev, _ = solv.preprocess(arr)
+        if mode == "e2vid":
+            frame = np.zeros((H, W))  # unused: the reconstruction wins
+        else:
+            frame, _t = reader.load_image(reader.time_to_image_index(t2))
+        t0 = time.perf_counter()
+        flows[mode] = solv.estimate(ev, frame=frame, frame_time=t2)
+        ms = 1e3 * (time.perf_counter() - t0)
+        print(f"e2vid: model_image {mode}: {ms:.1f} ms (60 iterations)")
+    same = np.array_equal(flows["e2vid"], flows["current"])
+    print(f"e2vid: {reader.num_images} reconstructions, image "
+          f"{reader.time_to_image_index(t2)} at t = {t2:.4f} s; flow "
+          f"bit-identical to model_image: current on the decoded PNG {same}")
+    assert same and np.abs(flows["e2vid"]).max() > 0
+    return same
+
+
+def check_dense_ops(device, windows, loader):
+    """Voxel grids, weighted images and flow propagation at full width,
+    card vs CPU within 1e-5 relative (float32 atomics' order); device ms
+    of each.  Returns the vote launches of the weighted images."""
+    import numpy as np
+    import torch
+
+    from event_based_bos_tpu_torch import kernels
+    from event_based_bos_tpu_torch.ops import flow as tflow
+    from event_based_bos_tpu_torch.ops import iwe, voxel
+    from event_based_bos_tpu_torch.types import (bucket_capacity,
+                                                 events_from_ndarray)
+
+    arr = windows[0]
+    cap = bucket_capacity(len(arr))
+    evs = {d: events_from_ndarray(arr, capacity=cap, device=d)
+           for d in (device, "cpu")}
+    det_j = np.random.default_rng(0).uniform(0.8, 1.2, cap)
+    weights = {d: torch.as_tensor(det_j, dtype=torch.float32, device=d)
+               for d in evs}
+    gt = {d: torch.as_tensor(loader.load_optical_flow(1),
+                             dtype=torch.float32, device=d) for d in evs}
+    cases = {
+        "event_voxel_5": lambda d: voxel.create_event_voxel(evs[d],
+                                                           (5, H, W)),
+        "discretized_volume_10": lambda d:
+            voxel.generate_discretized_event_volume(evs[d], (10, H, W)),
+        "timeimage": lambda d: iwe.create_timeimage(evs[d], (H, W)),
+        "iwa": lambda d: iwe.create_iwa(evs[d], (H, W), weights[d]),
+    }
+    for scheme in ("bilinear", "max", "upwind", "burgers"):
+        cases[f"propagate_{scheme}_5"] = (
+            lambda d, s=scheme: tflow.construct_dense_flow_voxel(gt[d], 5,
+                                                                 s))
+    results = {}
+    votes = 0
+    for name, fn in cases.items():
+        fn(device)  # warm-up
+        kernels.reset_launches()
+        card, ms = device_ms(lambda: fn(device))
+        votes += kernels.launches["hat_vote_image"]
+        cpu = fn("cpu")
+        rel = float((card.cpu() - cpu).abs().max()
+                    / (cpu.abs().max() + 1e-30))
+        results[name] = dict(ms=ms, rel_err=rel)
+        print(f"dense ops: {name} {tuple(card.shape)}: {ms:.3f} ms, card vs "
+              f"CPU relative max|diff| {rel:.3e}")
+        assert rel <= 1e-5, (name, rel)
+    assert votes == 3, votes  # the time image 1, IWA 2
+    return results, votes
+
+
+def run_remaining_ops(device, loader):
+    """Phase 12: the filters, the PIV, the event-grid PIV and the PIV GT,
+    ``model_image: e2vid`` and the voxel, weighted-image and propagation
+    ops at full width."""
+    t0 = time.perf_counter()
+    params = hot_plate_section("solver", "filter", "parameters")
+    windows = loader_windows(loader)
+    print(f"phase 12: hot_plate1 filter parameters {params}; windows "
+          f"{[len(w) for w in windows]} events")
+    filt, hot_votes = check_filters(device, windows, params)
+    pre_votes = check_preprocess(device, windows, params)
+    piv_result = check_piv(device)
+    grid_votes, grid_ms = run_event_grid_piv(device)
+    gt_epe = run_piv_ground_truth(device, loader)
+    run_e2vid(device, loader)
+    dense, dense_votes = check_dense_ops(device, windows, loader)
+    seconds = time.perf_counter() - t0
+    card = card_line()
+    baf = filt["baf"]
+    print(f"phase 12 on {card}: device BAF "
+          f"{statistics.median(r['device_f64_ms'] for r in baf):.2f} ms a "
+          f"window (float64; float32 "
+          f"{statistics.median(r['device_f32_ms'] for r in baf):.2f}) beside "
+          f"the native host BAF "
+          f"{statistics.median(r['native_ms'] for r in baf):.2f} ms; HOT "
+          f"{filt['hot_ms']:.3f} ms; PIV {piv_result['ms']:.1f} ms a pair; "
+          f"event-grid PIV {grid_ms:.1f} ms a pair (wall clock)")
+    print(json.dumps({"remaining_ops": dict(
+        card=card, filters=filt, piv=piv_result, event_grid_ms=grid_ms,
+        piv_gt_epe=gt_epe, dense=dense, seconds=seconds)}))
+    print(f"remaining ops: phase {seconds:.1f} s")
+    return {"filters": hot_votes + pre_votes, "piv": grid_votes,
+            "weighted_images": dense_votes}
+
+
+
 def main():
     import torch
 
@@ -2662,6 +3234,10 @@ def main():
     entries[0]["launches_ccs"] = ccs["votes"]
     others = run_other_solvers("cuda", loader, gt)
     entries[0]["launches_other_solvers"] = others["votes"]
+    remaining = run_remaining_ops("cuda", loader)
+    entries[0]["launches_filters"] = remaining["filters"]
+    entries[0]["launches_piv"] = remaining["piv"]
+    entries[0]["launches_weighted_images"] = remaining["weighted_images"]
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": entries}))

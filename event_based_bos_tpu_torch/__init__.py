@@ -13,11 +13,15 @@ GPU present they raise instead of falling back to the CPU
 
 Subpackages:
   * :mod:`event_based_bos_tpu_torch.ops` — IWE vote and blur, Sobel,
-    resize and pattern-shift warp.
+    resize and pattern-shift warp, event filters, voxel grids, flow
+    utilities and metrics.
   * :mod:`event_based_bos_tpu_torch.costs` — the functional cost registry.
   * :mod:`event_based_bos_tpu_torch.solver` — the generative model and the
     pyramidal patch solver.
-  * :mod:`event_based_bos_tpu_torch.data` — the synthetic BOS generator.
+  * :mod:`event_based_bos_tpu_torch.piv` — multipass window-deformation
+    PIV.
+  * :mod:`event_based_bos_tpu_torch.data` — the synthetic BOS generator
+    and the dataset loaders.
 """
 
 __version__ = "0.1.0"
@@ -26,6 +30,7 @@ from . import ops, types  # noqa: F401
 from .device import resolve_device  # noqa: F401
 from .types import (  # noqa: F401
     Events,
+    FlowPatch,
     PatchGrid,
     events_from_arrays,
     events_from_ndarray,

@@ -11,6 +11,9 @@ PyTorch port's copy of the JAX package's ``cli.py``: the same flags
     ``pred_flow{i}.npy``, the videos after the loop).  ``visualize:
     false`` is the serving loop: the error pair behind the solve, the
     texts and ``pred_flow{i}.npy`` only.
+  * ``--eval`` with ``estimation_method: openpiv`` →
+    :func:`evaluate_flow_on_event_grids`: PIV between two event
+    histograms a frame instead of the solver.
   * no ``--eval`` → :func:`estimate_sequential` (``run_mode:
     sequential_estimate`` also solves each window), or
     :func:`accumulate_sequential` with ``run_mode: accumulate``.
@@ -19,8 +22,7 @@ PyTorch port's copy of the JAX package's ``cli.py``: the same flags
 
 The loop runs on the GPU; from Python, ``main(argv, device="cpu")`` runs it
 on the CPU (without a GPU the command raises).  Not ported yet, and raising
-``NotImplementedError``: ``estimation_method: openpiv`` (ROADMAP Queue 1
-#14b) and ``mesh:`` (Queue 1 #15).
+``NotImplementedError``: ``mesh:`` (ROADMAP Queue 1 #15).
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ from .device import resolve_device
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["validate_image", "evaluate_per_frames", "estimate_sequential",
+__all__ = ["validate_image", "evaluate_per_frames",
+           "evaluate_flow_on_event_grids", "estimate_sequential",
            "accumulate_sequential", "write_videos", "main"]
 
 SUPPORTED_EVALUATION_METHOD = ["opencv_flow", "opencv_flow_two_steps",
@@ -496,6 +499,59 @@ def accumulate_sequential(config, loader, solv):
             i_frame += 1
 
 
+def evaluate_flow_on_event_grids(config, loader, viz, device=None):
+    """PIV between event histograms instead of the solver (``--eval`` with
+    ``estimation_method: openpiv``).
+
+    For each frame of ``time_list`` (every ``dt``-th): two histograms of
+    the events in the ``integration_time`` before the frame's time and
+    before ``frame_distance`` after it (each one vote, the vote kernel on
+    the card), scaled to 255 (and inverted with ``do_inversion``) on the
+    host, then the multipass PIV between them on ``device`` (the GPU unless
+    the caller asks for another) with the YAML's ``params_openpiv``; the
+    flow's color and vector views and both histograms go to the
+    Visualizer ``viz``.
+    """
+    from . import frame_flow
+    from .ops.iwe import create_image_from_events
+    from .types import events_from_ndarray
+
+    dev = resolve_device(device)
+    piv_cfg = config["params_openpiv_events"]
+    integration_time = piv_cfg["integration_time"]
+    frame_distance = piv_cfg["frame_distance"]
+    do_inversion = piv_cfg["do_inversion"]
+    eval_config = config["evaluation"]
+    eval_dt = eval_config["dt"]
+    orig_shape = (config["data"]["height"], config["data"]["width"])
+    estimator = frame_flow.FrameFlowEstimator(
+        viz, convention=config.get("flow_convention", "reference"),
+        device=dev)
+
+    def hist_at(ta, tb):
+        e = loader.load_event(max(loader.time_to_index(ta), 0),
+                              min(loader.time_to_index(tb), len(loader)))
+        ev = events_from_ndarray(e, device=dev)
+        h = create_image_from_events(ev, orig_shape, sigma=0).cpu().numpy()
+        h = h * (255.0 / max(h.max(), 1e-9))
+        return 255.0 - h if do_inversion else h
+
+    for t_start, t_end in eval_config["time_list"]:
+        ind_start = loader.time_to_image_index(t_start) + 1
+        ind_end = loader.time_to_image_index(t_end) - eval_dt
+        for i1 in range(ind_start, ind_end, eval_dt):
+            _im1, t1 = loader.load_image(i1)
+            hist1 = hist_at(t1 - integration_time, t1)
+            hist2 = hist_at(t1 + frame_distance - integration_time,
+                            t1 + frame_distance)
+            flow, _fig = estimator.consecutive_openpiv(hist1, hist2, config)
+            viz.visualize_optical_flow(flow[0], flow[1],
+                                       file_prefix="event_flow_openpiv")
+            viz.visualize_vector_field(flow, file_prefix="event_flow_vector")
+            viz.visualize_image(hist1.astype(np.uint8), file_prefix="hist1")
+            viz.visualize_image(hist2.astype(np.uint8), file_prefix="hist2")
+
+
 def write_videos(viz, solv) -> None:
     """After a run: drain the Visualizer's writer, finish the video of
     each prefix the solver registered, then the side-by-side comparison
@@ -529,10 +585,6 @@ def main(argv=None, device=None):
     if args.eval:
         assert config["method"] in SUPPORTED_EVALUATION_METHOD
         assert config["estimation_method"] in SUPPORTED_ESTIMATION_METHOD
-        if config["estimation_method"] == "openpiv":
-            raise NotImplementedError(
-                "estimation_method: openpiv (PIV on event histograms) is not "
-                "ported yet (ROADMAP Queue 1 #14b)")
 
     loader = data.collections[data_config["dataset"]](config=data_config)
     loader.set_sequence(data_config["sequence"])
@@ -564,7 +616,9 @@ def main(argv=None, device=None):
 
     logger.info("Start BOS estimation.")
     with _nan_checks(bool(config.get("debug_nans"))):
-        if args.eval:
+        if args.eval and config["estimation_method"] == "openpiv":
+            evaluate_flow_on_event_grids(config, loader, viz, device=dev)
+        elif args.eval:
             evaluate_per_frames(config, loader, solv, viz, device=dev)
         elif config.get("run_mode") == "accumulate":
             accumulate_sequential(config, loader, solv)

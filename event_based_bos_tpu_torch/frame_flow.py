@@ -1,14 +1,15 @@
-"""Frame-based ground-truth flow for the evaluation loop (Farnebäck).
+"""Frame-based ground-truth flow for the evaluation loop (Farnebäck, PIV).
 
 PyTorch port's copy of the JAX package's ``frame_flow.py``: the
 ``opencv_flow`` branch (OpenCV's Farnebäck flow between the two
 ROI-cropped frames, zero-padded to the full frame, on the host) and the
 ``opencv_flow_two_steps`` branch (each frame's one-step flow from the
 background frame, zero-padded, integrated to its uint8 Poisson view on the
-estimator's device, then Farnebäck between the two views).  ``cv2`` is
-imported only where a flow is computed, so the package imports on a
-machine without OpenCV.  The PIV branch (ROADMAP Queue 1 #14b) is not
-ported yet and raises.
+estimator's device, then Farnebäck between the two views) and the
+``openpiv`` branch (the port's multipass PIV, :mod:`.piv`, on the
+estimator's device, zero-padded like the others).  ``cv2`` is imported
+only where a Farnebäck flow is computed, so the package imports on a
+machine without OpenCV.
 
 GT channel convention: the reference transposes the cv2 flow to
 ``[2, H, W]`` with channel 0 the **column** displacement and channel 1 the
@@ -74,9 +75,9 @@ class FrameFlowEstimator:
         if method == "opencv_flow_two_steps":
             return self.opencv_farneback_two_step(
                 frame0, frame1, frame2, config["params_opencv_flow"])
-        if method in ("openpiv", "openpiv_two_steps"):
-            raise NotImplementedError(
-                f"the {method} GT is not ported yet (ROADMAP Queue 1 #14b)")
+        if method == "openpiv":
+            flow, _fig = self.consecutive_openpiv(frame1, frame2, config)
+            return _pad_flow(np.asarray(flow), config["params_opencv_flow"])
         raise NotImplementedError(f"{method} is not supported")
 
     def opencv_farneback(self, frame1, frame2, params_opencv_flow,
@@ -113,3 +114,20 @@ class FrameFlowEstimator:
         p02 = integral(frame0, frame2)
         f12 = bos_optical_flow(p01, p02, params_opencv_flow).transpose(2, 0, 1)
         return self._orient(f12)
+
+    def consecutive_openpiv(self, frame1, frame2, config: dict,
+                            visualize_frame: bool = False):
+        """Multipass window-deformation PIV from ``frame1`` to ``frame2``
+        with the YAML's ``params_openpiv`` (the ROI from
+        ``common_params``), on the estimator's device; returns ``(flow,
+        None)``, the flow oriented (the figure slot of the reference's
+        signature is empty)."""
+        from .piv import piv_multipass
+        from .utils.config import load_config_openpiv
+
+        settings = load_config_openpiv(config["params_openpiv"],
+                                       config["common_params"], ".")
+        flow = piv_multipass(np.asarray(frame1, np.float32),
+                             np.asarray(frame2, np.float32), settings,
+                             device=self.device)
+        return self._orient(flow), None

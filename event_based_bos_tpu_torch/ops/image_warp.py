@@ -9,7 +9,11 @@ PyTorch counterpart of the JAX package's ``ops/image_warp.py``:
   * :func:`shift_image_matrix` / :func:`warp_image_shift` — a global
     bilinear shift, as two banded matmuls or as a gather;
   * :func:`resize_bilinear` — half-pixel bilinear resize as two matmuls
-    with interpolation matrices built in numpy;
+    with interpolation matrices built in numpy, and
+    :func:`upsample_bilinear_phased`, its integer-factor form as weighted
+    adds of edge-clamped shifts;
+  * :func:`pad_to_same_resolution` / :func:`pad_to_same_resolution_center`
+    — constant padding by the config's pad widths, or centred;
   * :func:`standardize_image_minmax`, :func:`standardize_image_center` and
     :func:`range_norm` — the display normalisations of the visualizer.
 """
@@ -27,8 +31,10 @@ from ..numerics import abs_
 
 __all__ = ["sample_bilinear", "warp_image_forward", "warp_image_stencil",
            "shift_image_matrix", "warp_image_shift", "resize_matrix",
-           "resize_bilinear", "standardize_image_minmax",
-           "standardize_image_center", "range_norm"]
+           "resize_bilinear", "upsample_bilinear_phased",
+           "pad_to_same_resolution", "pad_to_same_resolution_center",
+           "standardize_image_minmax", "standardize_image_center",
+           "range_norm"]
 
 
 def sample_bilinear(image: torch.Tensor, rows: torch.Tensor,
@@ -192,6 +198,62 @@ def resize_bilinear(image: torch.Tensor, out_shape: Tuple[int, int]
     mh = resize_matrix(h, oh, image.dtype, image.device)
     mw = resize_matrix(w, ow, image.dtype, image.device)
     return torch.matmul(torch.matmul(mh, image), mw.T)
+
+
+def _upsample_axis_phased(x: torch.Tensor, s: int, axis: int
+                          ) -> torch.Tensor:
+    """Integer-factor half-pixel bilinear upsample along one axis: output
+    ``k·s + p`` is a phase-constant weighted add of ``in[k + d_p]`` and
+    ``in[k + d_p + 1]`` (edge-clamped)."""
+    ax = axis % x.dim()
+    n = x.shape[ax]
+    xm = torch.cat([x.narrow(ax, 0, 1), x.narrow(ax, 0, n - 1)], ax)
+    xp = torch.cat([x.narrow(ax, 1, n - 1), x.narrow(ax, n - 1, 1)], ax)
+    phases = []
+    for p in range(s):
+        f = (p + 0.5) / s - 0.5
+        a, b, wgt = (xm, x, f + 1.0) if f < 0 else (x, xp, f)
+        wgt = torch.tensor(wgt, dtype=x.dtype, device=x.device)
+        phases.append((1 - wgt) * a + wgt * b)
+    stacked = torch.stack(phases, dim=ax + 1)
+    return stacked.reshape(x.shape[:ax] + (n * s,) + x.shape[ax + 1:])
+
+
+def upsample_bilinear_phased(field: torch.Tensor,
+                             stride: Tuple[int, int]) -> torch.Tensor:
+    """Integer-factor bilinear upsample of the trailing 2 axes; equals
+    :func:`resize_bilinear` to rounding for ``out = in·stride``."""
+    s_r, s_c = int(stride[0]), int(stride[1])
+    x = field
+    if s_r > 1:
+        x = _upsample_axis_phased(x, s_r, -2)
+    if s_c > 1:
+        x = _upsample_axis_phased(x, s_c, -1)
+    return x
+
+
+def pad_to_same_resolution(array: torch.Tensor, pad_config: dict,
+                           constant_value: float = 0.0) -> torch.Tensor:
+    """Pad the trailing 2 axes by the config's ``pad_x0``/``pad_x1``
+    (rows) and ``pad_y0``/``pad_y1`` (columns) with ``constant_value``."""
+    return F.pad(array, (pad_config["pad_y0"], pad_config["pad_y1"],
+                         pad_config["pad_x0"], pad_config["pad_x1"]),
+                 value=constant_value)
+
+
+def pad_to_same_resolution_center(array: torch.Tensor, desired_shape,
+                                  constant_value: float = 0.0
+                                  ) -> torch.Tensor:
+    """Pad to ``desired_shape`` (trailing axes when shorter), centred: the
+    odd pixel goes after."""
+    cur = tuple(array.shape)
+    if len(cur) != len(desired_shape):
+        desired_shape = (cur[:len(cur) - len(desired_shape)]
+                         + tuple(desired_shape))
+    widths = []
+    for i, j in reversed(list(zip(cur, desired_shape))):
+        widths += [(j - i) // 2, (j - i) - (j - i) // 2]
+    return F.pad(array, widths, value=constant_value)
 
 
 def standardize_image_minmax(array: torch.Tensor, new_min: float = 0.0,

@@ -6,8 +6,10 @@ the coordinates and weights; the per-frame signed vote of the IWE cache
 runs on the hand-written CUDA kernel of
 :mod:`event_based_bos_tpu_torch.ops.iwe_cuda` instead.  The high-level
 images (:func:`create_image_from_events`, :func:`create_iwe`,
-:func:`create_eventmask`) vote through that kernel for CUDA tensors (not
-differentiable there) and through the scatter for CPU tensors.
+:func:`create_eventmask` and the weighted images: the probability and time
+images, the IWA/IWD/IWT ratio images) vote through that kernel for CUDA
+tensors (not differentiable there) and through the scatter for CPU
+tensors.
 
 Coordinate convention (reference parity): ``x`` is the row / height
 coordinate, ``y`` is the column / width coordinate.
@@ -23,12 +25,14 @@ import torch
 
 from ..device import resolve_device
 from ..types import Events
+from .events import pixel_indices
 from .iwe_cuda import bilinear_vote_cuda, polarity_iwe_cuda
 
 __all__ = ["gaussian_kernel1d", "blur_operators", "cached_blur_operators",
            "gaussian_blur", "bilinear_vote", "count_image",
            "create_image_from_events", "create_iwe", "create_polarity_iwe",
-           "create_eventmask"]
+           "create_probability_iwe", "create_timeimage", "create_eventmask",
+           "create_iwa", "create_iwd", "create_iwt", "create_eventrate"]
 
 _EPS = 1e-6  # floor nudge of the scatter (the reference's torch path)
 
@@ -217,3 +221,74 @@ def create_eventmask(ev: Events, image_size: Tuple[int, int],
     im = create_image_from_events(ev, image_size, "bilinear_vote", 1.0, 0,
                                   padding)
     return (im != 0)[None]
+
+
+def create_probability_iwe(ev: Events, image_size, prob: torch.Tensor,
+                           sigma: float = 1,
+                           padding: Tuple[int, int] = (0, 0)) -> torch.Tensor:
+    """The IWE weighted by each event's association probability."""
+    return create_image_from_events(ev, image_size, "bilinear_vote", prob,
+                                    sigma, padding)
+
+
+def create_timeimage(ev: Events, image_size,
+                     ts: Optional[torch.Tensor] = None, sigma: float = 1,
+                     padding: Tuple[int, int] = (0, 0)) -> torch.Tensor:
+    """The sum-of-timestamps image (``ts``, else the events' own times, as
+    per-event weights)."""
+    ts = ev.t if ts is None else ts
+    return create_image_from_events(ev, image_size, "bilinear_vote", ts,
+                                    sigma, padding)
+
+
+def _ratio_image(ev, image_size, per_event, base, sigma, padding):
+    """``Σ (per_event − base)·vote / (count + 1e-2) + base``, blurred: the
+    pattern of IWA, IWD and IWT (two votes)."""
+    s = create_image_from_events(ev, image_size, "bilinear_vote",
+                                 per_event - base, 0, padding)
+    c = create_image_from_events(ev, image_size, "bilinear_vote", 1.0, 0,
+                                 padding)
+    out = s / (c + 1e-2) + base
+    if sigma and sigma > 0:
+        out = gaussian_blur(out, sigma)
+    return out
+
+
+def create_iwa(ev: Events, image_size, det_j: torch.Tensor, sigma: float = 1,
+               padding: Tuple[int, int] = (0, 0)) -> torch.Tensor:
+    """Image of warped area: the mean per-pixel ``det J`` (base 1)."""
+    return _ratio_image(ev, image_size, det_j, 1.0, sigma, padding)
+
+
+def create_iwd(ev: Events, image_size, div: torch.Tensor, sigma: float = 1,
+               padding: Tuple[int, int] = (0, 0)) -> torch.Tensor:
+    """Image of the mean per-pixel divergence (base 0)."""
+    return _ratio_image(ev, image_size, div, 0.0, sigma, padding)
+
+
+def create_iwt(ev: Events, image_size, trace: torch.Tensor, sigma: float = 1,
+               padding: Tuple[int, int] = (0, 0)) -> torch.Tensor:
+    """Image of the mean per-pixel trace (base 2)."""
+    return _ratio_image(ev, image_size, trace, 2.0, sigma, padding)
+
+
+def create_eventrate(ev: Events, image_size: Tuple[int, int]) -> torch.Tensor:
+    """Per-pixel max event rate ``max(1/dt)`` between consecutive events of
+    a pixel: the live events ordered by (pixel, t) with stable sorts
+    (invalid ones in a sentinel bucket past the frame), then a
+    scatter-max of the rates into zeros.  No vote."""
+    h, w = image_size
+    xi, yi = pixel_indices(ev, h, w)
+    pix = torch.where(ev.valid, xi * w + yi, h * w)
+    order = torch.sort(ev.t, stable=True).indices
+    order = order[torch.sort(pix[order], stable=True).indices]
+    pix_s = pix[order]
+    t_s = ev.t[order]
+    same = pix_s[1:] == pix_s[:-1]
+    dt = t_s[1:] - t_s[:-1]
+    rate = torch.where(same & (dt > 0) & (pix_s[1:] < h * w),
+                       1.0 / torch.clamp(dt, min=1e-30), 0.0)
+    idx = torch.where(same, pix_s[1:], 0)
+    flat = torch.zeros(h * w + 1, dtype=ev.t.dtype, device=ev.t.device)
+    flat = flat.scatter_reduce(0, idx, rate, reduce="amax")
+    return flat[:h * w].reshape(h, w)

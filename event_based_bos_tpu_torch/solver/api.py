@@ -146,12 +146,7 @@ class SolverBase:
         self.dtype = (torch.float64
                       if str(self.slv_config.get("precision", "32")) == "64"
                       else torch.float32)
-        model_image = self.slv_config.get("generative_ml", {}).get(
-            "model_image", "current")
-        if model_image == "e2vid":
-            raise NotImplementedError(
-                "model_image: e2vid needs the E2VID loader, which is not "
-                "ported yet (ROADMAP Queue 1 #14b)")
+        self._e2vid_loader = self._setup_e2vid_loader()
         self.flow_convention = self.slv_config.get("flow_convention",
                                                    "reference")
         self.normalize_t_in_batch = True
@@ -539,6 +534,22 @@ class SolverBase:
                                                                     clipped)
 
     # -- model image handling ---------------------------------------------------------
+    def _setup_e2vid_loader(self):
+        """The E2VID reconstruction loader of ``model_image: e2vid``, from
+        ``solver.generative_ml.e2vid`` (the loader's ``root`` /
+        ``dataset`` / ``sequence`` keys); None without that section."""
+        gml_cfg = self.slv_config.get("generative_ml", {})
+        if gml_cfg.get("model_image") != "e2vid" or "e2vid" not in gml_cfg:
+            return None
+        from ..data.e2vid import E2vidDataLoader
+
+        e2_cfg = dict(gml_cfg["e2vid"])
+        sequence = e2_cfg.pop("sequence", None)
+        loader = E2vidDataLoader(config=e2_cfg)
+        if sequence is not None:
+            loader.set_sequence(sequence)
+        return loader
+
     def _model_frame(self, kwargs) -> np.ndarray:
         mode = self.slv_config.get("generative_ml", {}).get("model_image",
                                                             "current")
@@ -550,7 +561,34 @@ class SolverBase:
             if getattr(self, "_background", None) is None:
                 self._background = np.asarray(kwargs["background"])
             return self._background
+        if mode == "e2vid":
+            return self._e2vid_frame(kwargs)
         raise ValueError(f"Unknown model_image {mode!r}")
+
+    def _e2vid_frame(self, kwargs) -> np.ndarray:
+        """The reconstruction of ``model_image: e2vid``: an explicit
+        ``e2vid_frame``; else the E2VID loader's image at ``frame_time``
+        (at the dispatch count without one: the pipelined loop dispatches
+        the next frame before the previous one is finalized); else, with a
+        warning, ``frame`` (right only when the data loader is E2VID)."""
+        if kwargs.get("e2vid_frame") is not None:
+            return np.asarray(kwargs["e2vid_frame"])
+        if self._e2vid_loader is not None:
+            t = kwargs.get("frame_time")
+            index = (max(self._e2vid_loader.time_to_image_index(t), 0)
+                     if t is not None else self.dispatch_cnt)
+            image, _ts = self._e2vid_loader.load_image(index)
+            return np.asarray(image)
+        if kwargs.get("frame") is not None:
+            logger.warning(
+                "model_image 'e2vid' without a generative_ml.e2vid loader "
+                "config: using the supplied `frame` as the reconstruction — "
+                "valid only with the E2VID data loader.")
+            return np.asarray(kwargs["frame"])
+        raise ValueError(
+            "model_image 'e2vid' needs a generative_ml.e2vid loader config, "
+            "an e2vid_frame kwarg, or an E2VID data loader supplying "
+            "`frame`.")
 
     def _viz_diff_scale(self):
         """``generative_ml.viz_diff_scale``: the fixed color scale of the

@@ -19,7 +19,7 @@ import torch
 from .device import resolve_device
 
 __all__ = ["Events", "events_from_arrays", "bucket_capacity",
-           "events_from_ndarray", "pad_events", "PatchGrid"]
+           "events_from_ndarray", "pad_events", "FlowPatch", "PatchGrid"]
 
 
 class Events(NamedTuple):
@@ -114,6 +114,48 @@ def pad_events(ev: Events, capacity: int) -> Events:
         return torch.cat([a, a.new_zeros(a.shape[:-1] + (pad,))], dim=-1)
 
     return Events(*(_pad(a) for a in ev))
+
+
+@dataclasses.dataclass
+class FlowPatch:
+    """One patch: its center ``(x, y)``, ``shape`` and flow ``(u, v)``,
+    with the derived bounds (center ∓ size / 2).  The solvers work on
+    whole :class:`PatchGrid` fields; this is the reference's per-patch
+    record for code written against it."""
+
+    x: float = 0.0
+    y: float = 0.0
+    shape: Tuple[int, int] = (0, 0)
+    u: float = 0.0
+    v: float = 0.0
+
+    @property
+    def position(self) -> np.ndarray:
+        return np.array([self.x, self.y])
+
+    @property
+    def flow(self) -> np.ndarray:
+        return np.array([self.u, self.v])
+
+    @property
+    def x_min(self) -> float:
+        return self.x - self.shape[0] / 2
+
+    @property
+    def x_max(self) -> float:
+        return self.x + self.shape[0] / 2
+
+    @property
+    def y_min(self) -> float:
+        return self.y - self.shape[1] / 2
+
+    @property
+    def y_max(self) -> float:
+        return self.y + self.shape[1] / 2
+
+    def update(self, u: float, v: float) -> None:
+        self.u = float(u)
+        self.v = float(v)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,19 +4,23 @@ PyTorch port's copy of the JAX package's ``utils/config.py``: the same CLI
 flags (``--config_file``, ``--log``, ``--eval``), the same YAML schema
 (``configs/README.md``) and the same cross-section propagation of the common
 ROI.  ``yaml`` is imported only where a file is parsed, so the package
-imports on a machine without PyYAML.  The PIV settings are not ported yet
-(ROADMAP Queue 1 #14b).
+imports on a machine without PyYAML.  :class:`PivSettings` is the plain
+settings record of the port's PIV (:mod:`event_based_bos_tpu_torch.piv`),
+built from the YAML's ``params_openpiv`` by :func:`load_config_openpiv`.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import os
 import shutil
 import sys
+from typing import Optional, Tuple
 
-__all__ = ["parse_args", "propagate_config", "save_config"]
+__all__ = ["parse_args", "propagate_config", "save_config", "PivSettings",
+           "load_config_openpiv"]
 
 
 def parse_args(default_path: str = "./configs/synthetic_plume.yaml",
@@ -99,4 +103,62 @@ def save_config(save_dir: str, file_name: str,
         level=level,
         format="%(asctime)s - %(name)s - %(levelname)s - %(message)s",
         force=True,
+    )
+
+
+@dataclasses.dataclass
+class PivSettings:
+    """Settings of the multipass window-deformation PIV
+    (:mod:`event_based_bos_tpu_torch.piv`): the options of OpenPIV's
+    ``windef.Settings`` that the pipeline reads, with OpenPIV's defaults."""
+
+    roi: Optional[Tuple[int, int, int, int]] = None  # xmin, xmax, ymin, ymax
+    windowsizes: Tuple[int, ...] = (64, 32, 16, 8)
+    overlap: Tuple[int, ...] = (32, 16, 8, 4)
+    deformation_method: str = "symmetric"  # or "second image"
+    subpixel_method: str = "gaussian"
+    correlation_method: str = "circular"
+    sig2noise_threshold: float = 1.0
+    sig2noise_method: str = "peak2peak"
+    sig2noise_mask: int = 2
+    sig2noise_validate: bool = False
+    validation_first_pass: bool = True
+    replace_vectors: bool = True
+    filter_method: str = "localmean"
+    max_filter_iteration: int = 2
+    filter_kernel_size: int = 1
+    min_max_u_disp: Tuple[float, float] = (-20, 20)
+    min_max_v_disp: Tuple[float, float] = (-20, 20)
+    std_threshold: float = 5.0
+    median_threshold: float = 5.0
+    median_size: int = 2
+    smoothn: bool = True
+    smoothn_p: float = 0.05
+    scaling_factor: float = 1.0
+    dt: float = 1.0
+
+    @property
+    def num_iterations(self) -> int:
+        return len(self.windowsizes)
+
+
+def load_config_openpiv(params_openpiv: dict, common_config: dict,
+                        save_dir: str) -> PivSettings:
+    """PIV settings from the YAML's ``params_openpiv`` section: the window
+    sizes and overlaps, the deformation method and the displacement
+    limits; the ROI from ``common_config`` unless ``ROI: full``.
+    ``save_dir`` is accepted for the reference's signature."""
+    if params_openpiv.get("ROI") == "full":
+        roi = None
+    else:
+        roi = (common_config["xmin"], common_config["xmax"],
+               common_config["ymin"], common_config["ymax"])
+    return PivSettings(
+        roi=roi,
+        windowsizes=tuple(params_openpiv["windowsizes"]),
+        overlap=tuple(params_openpiv["overlap"]),
+        deformation_method=params_openpiv.get("deformation_method",
+                                              "symmetric"),
+        min_max_u_disp=tuple(params_openpiv.get("MinMax_U_disp", (-20, 20))),
+        min_max_v_disp=tuple(params_openpiv.get("MinMax_V_disp", (-20, 20))),
     )

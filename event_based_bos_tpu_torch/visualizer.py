@@ -715,7 +715,7 @@ class Visualizer:
     # -- optimization history -----------------------------------------------------
     def _can_plot(self) -> bool:
         """Whether matplotlib imports; the first miss logs one warning,
-        and the history plots then write nothing."""
+        and the history and vector-field plots then write nothing."""
         if self._matplotlib is None:
             try:
                 import matplotlib  # noqa: F401
@@ -723,7 +723,7 @@ class Visualizer:
             except ImportError:
                 self._matplotlib = False
                 logger.warning("matplotlib is not installed: the loss-history "
-                               "plots are not written")
+                               "and vector-field plots are not written")
         return self._matplotlib
 
     def visualize_scipy_history(self, cost_history: dict, cost_weight=None,
@@ -794,8 +794,11 @@ class Visualizer:
                                file_prefix: str = "vector_field"):
         """Quiver plot of a dense flow field.
 
-        Equivalent of OpenPIV's ``display_vector_field``.
+        Equivalent of OpenPIV's ``display_vector_field``.  Writes nothing
+        where matplotlib cannot be imported (:meth:`_can_plot`).
         """
+        if not self._can_plot():
+            return
         import matplotlib
         matplotlib.use("Agg")
         import matplotlib.pyplot as plt

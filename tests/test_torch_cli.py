@@ -25,6 +25,7 @@ import pathlib
 
 import numpy as np
 import pytest
+import torch
 import yaml
 
 import cv2
@@ -33,8 +34,8 @@ import event_based_bos_tpu.solver.facades as jfacades
 import event_based_bos_tpu_torch.cli as tcli
 import event_based_bos_tpu_torch.solver.facades as tfacades
 from event_based_bos_tpu_torch.utils import read_flow_error_text
-from torch_parity import (inject_init, pyramid_init, small_config,
-                          torch_threads)
+from torch_parity import (inject_init, jax_piv_multipass64, pyramid_init,
+                          small_config, torch_threads)
 
 TEXTS = ("flow_error_per_frame_without_mask.txt",
          "flow_error_per_frame_with_mask.txt", "timestamps_per_frame.txt")
@@ -355,12 +356,102 @@ def test_contrast_maximization_cli_writes_parsable_texts(tmp_path):
                for f in flows)
 
 
+#: the event-grid PIV's section (not in the shipped configs)
+PIV_EVENTS = {"integration_time": 0.02, "frame_distance": 0.02,
+              "do_inversion": True}
+
+
+def _recorded_piv(monkeypatch, frame_flow_module):
+    """Wrap the module's ``FrameFlowEstimator.consecutive_openpiv`` to
+    record each returned flow, and run its PIV in float64 (the JAX
+    package's through ``torch_parity.jax_piv_multipass64``)."""
+    import functools
+
+    if frame_flow_module.__name__.startswith("event_based_bos_tpu."):
+        import event_based_bos_tpu.piv as piv
+
+        monkeypatch.setattr(piv, "piv_multipass", jax_piv_multipass64)
+    else:
+        import event_based_bos_tpu_torch.piv as piv
+
+        monkeypatch.setattr(piv, "piv_multipass", functools.partial(
+            piv.piv_multipass, dtype=torch.float64))
+    cls = frame_flow_module.FrameFlowEstimator
+    orig = cls.consecutive_openpiv
+    flows = []
+
+    def recorded(self, *args, **kwargs):
+        out = orig(self, *args, **kwargs)
+        flows.append(np.asarray(out[0]))
+        return out
+
+    monkeypatch.setattr(cls, "consecutive_openpiv", recorded)
+    return flows
+
+
+def _assert_openpiv_cli_matches_jax(tmp_path, monkeypatch, top):
+    """``estimation_method: openpiv``: the same histogram PNGs bit for
+    bit (integer event pixels), the same artifact names, and each pair's
+    PIV flow within 1e-9 px.  ``method: openpiv``: the PIV GT of each of
+    two solver frames within 1e-9 px, and the error texts within 1e-6
+    relative.  Both packages' PIV runs in float64 here: in float32 the
+    two FFT libraries round differently, and a near-tie of two
+    correlation peaks can then fall either way."""
+    import event_based_bos_tpu.frame_flow as jframe_flow
+    import event_based_bos_tpu_torch.frame_flow as tframe_flow
+
+    cfg = small_config(**top)
+    cfg["evaluation"]["time_list"] = [[0.01, 0.15]]
+    if top.get("estimation_method") == "openpiv":
+        cfg["params_openpiv_events"] = dict(PIV_EVENTS)
+        del cfg["visualize"]
+        # dense enough that no interrogation window of a histogram is
+        # blank: a blank window's correlation is all rounding noise, and
+        # its peak falls anywhere
+        cfg["data"]["events_per_frame"] = 200000
+        # no 8-px pass: on this scene's first pair one of its windows
+        # holds two near-equal correlation peaks, and a 1e-15 px
+        # difference in the previous pass's field picks either
+        # (tests/test_torch_piv.py holds every pass size to JAX)
+        cfg["params_openpiv"].update(windowsizes=[64, 32, 16],
+                                     overlap=[32, 16, 8])
+    init = pyramid_init(cfg)
+    inject_init(monkeypatch, tfacades, init)
+    inject_init(monkeypatch, jfacades, init)
+    tflows = _recorded_piv(monkeypatch, tframe_flow)
+    jflows = _recorded_piv(monkeypatch, jframe_flow)
+    got = _run_port(tmp_path, "torch", cfg)
+    want = _run_jax(tmp_path, cfg)
+    assert len(tflows) == len(jflows) == 2
+    for a, b in zip(tflows, jflows):
+        assert a.dtype == b.dtype == np.float64 and a.shape == b.shape
+        assert np.max(np.abs(a - b)) <= 1e-9 and np.abs(a).max() > 0
+    if top.get("estimation_method") == "openpiv":
+        names = _assert_artifacts_close(tmp_path, got, want)
+        for prefix in ("hist1", "hist2", "event_flow_openpiv"):
+            assert f"{prefix}1.png" in names, prefix
+        for name in names:
+            if name.startswith("hist"):
+                assert np.array_equal(cv2.imread(str(got / name)),
+                                      cv2.imread(str(want / name))), name
+    else:
+        _assert_texts_close(got, want, TEXTS, 1e-6)
+        _assert_flows_close(got, want, 2)
+
+
 @pytest.mark.parametrize("top,argv_eval,match", [
     ({"mesh": {"data": 1, "event": 1}}, True, "#15"),
     ({"estimation_method": "openpiv"}, True, "#14b"),
     ({"method": "openpiv"}, True, "#14b"),
 ])
-def test_options_not_ported_raise(tmp_path, top, argv_eval, match):
+def test_options_not_ported_raise(tmp_path, monkeypatch, top, argv_eval,
+                                  match):
+    """``mesh:`` is not ported (ROADMAP Queue 1 #15) and raises.  The PIV
+    options raised until #14b ported them; those cases now hold the
+    port's CLI to the JAX CLI (:func:`_assert_openpiv_cli_matches_jax`)."""
+    if match == "#14b":
+        _assert_openpiv_cli_matches_jax(tmp_path, monkeypatch, top)
+        return
     argv, _out = _write(tmp_path, "x", small_config(**top))
     if not argv_eval:
         argv = argv[:-1]

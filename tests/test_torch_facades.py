@@ -247,8 +247,20 @@ def test_solver_texts_are_parsable(tmp_path):
      "#14"),
 ])
 def test_options_not_ported_or_invalid_raise(overrides, exc, match):
+    """Invalid values raise, and the wire options (ROADMAP Queue 1 #16)
+    are not ported.  ``model_image: e2vid`` raised until #14 ported the
+    E2VID loader: that case now builds as in the JAX package, and without
+    a ``generative_ml.e2vid`` loader both facades' model frame is the
+    supplied ``frame`` (``tests/test_torch_loaders.py`` holds the loader
+    route to JAX)."""
     cfg = _config()
     cfg["solver"].update(overrides)
+    if match == "#14":
+        frame = np.arange(H * W, dtype=float).reshape(H, W)
+        for package in ("torch", "jax"):
+            solv = _build(cfg, package)
+            assert np.array_equal(solv._model_frame({"frame": frame}), frame)
+        return
     with pytest.raises(exc, match=match):
         _build(cfg, "torch")
 
@@ -396,8 +408,19 @@ def test_split_iwe_cache_modes_are_accepted(mode):
 
 @pytest.mark.parametrize("dataset", ["E2VID", "HELIUM"])
 def test_recorded_dataset_loaders_are_not_ported_yet(dataset):
-    with pytest.raises(NotImplementedError, match="#14b"):
-        tdata.collections[dataset](config={"height": H, "width": W})
+    """The E2VID and HELIUM loaders raised until ROADMAP Queue 1 #14b
+    ported them: the registry now gives the port's loader, configured as
+    the JAX package's (``tests/test_torch_loaders.py`` holds their reads
+    to JAX)."""
+    from event_based_bos_tpu import data as jdata
+
+    cfg = {"height": H, "width": W, "root": "/data"}
+    loader = tdata.collections[dataset](config=dict(cfg))
+    want = jdata.collections[dataset](config=dict(cfg))
+    assert loader.NAME == dataset
+    assert type(loader).__name__ == type(want).__name__
+    assert loader.dataset_dir == want.dataset_dir
+    assert type(loader).__module__.startswith("event_based_bos_tpu_torch.")
 
 
 def test_ccs_loader_is_registered():

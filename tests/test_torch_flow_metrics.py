@@ -242,8 +242,10 @@ def test_event_filter_crop_matches_jax():
 @pytest.mark.parametrize("name", ["BAF", "HOT"])
 def test_baf_and_hot_filters_run_on_the_host_only(name):
     """BAF and HOT run in the host pipeline (before the upload), as the
-    JAX package's; the device pipeline names the queue item that ports
-    them."""
+    JAX package's.  The device pipeline raised for them until ROADMAP
+    Queue 1 #14b ported it: it now keeps the same events as the host
+    pipeline and as JAX's device pipeline (float64 record, bit for bit;
+    ``tests/test_torch_filters.py`` holds each filter to JAX)."""
     cfg = dict(FILTER_CONFIG, filters=[name])
     tf = tfilters.EventFilter((H, W), cfg)
     jf = jfilters.EventFilter((H, W), cfg)
@@ -258,9 +260,11 @@ def test_baf_and_hot_filters_run_on_the_host_only(name):
     assert np.array_equal(got, jf.process_numpy(arr))
     assert 0 < len(got) < len(tfilters.EventFilter(
         (H, W), FILTER_CONFIG).process_numpy(arr))
-    _jev, tev = both_events(tuple(arr.T.astype(np.float32)))
-    with pytest.raises(NotImplementedError, match="#14b"):
-        tf.process(tev)
+    jev = jtypes.events_from_ndarray(arr, dtype=jnp.float64)
+    tev = ttypes.events_from_ndarray(arr, dtype=torch.float64, device=CPU)
+    out = tf.process(tev)
+    assert np.array_equal(np_of(out.valid), np.asarray(jf.process(jev).valid))
+    assert np.array_equal(out.to_numpy(), got)
 
 
 def test_unknown_filter_raises():

@@ -119,6 +119,36 @@ def test_entry_points_without_device_raise_on_a_cpu_only_machine():
     assert resolve_device("cpu").type == "cpu"
 
 
+def test_remaining_ops_and_data_are_covered_and_need_a_device():
+    """The modules of the remaining ops and data (PIV, the voxel grids,
+    the statistics, the E2VID and HELIUM loaders) are among those the
+    subprocess above imports without JAX, cv2, yaml or h5py, and their
+    entry points called without ``device=`` raise here (no GPU)."""
+    torch = pytest.importorskip("torch")
+    mods = _port_modules()
+    for m in ("piv", "ops.voxel", "ops.stats", "data.e2vid", "data.helium"):
+        assert f"event_based_bos_tpu_torch.{m}" in mods, m
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    from event_based_bos_tpu_torch.frame_flow import FrameFlowEstimator
+    from event_based_bos_tpu_torch.ops.events import generate_events
+    from event_based_bos_tpu_torch.ops.flow import (
+        generate_dense_optical_flow, generate_uniform_optical_flow)
+    from event_based_bos_tpu_torch.piv import piv_multipass
+    from event_based_bos_tpu_torch.utils.config import PivSettings
+
+    frame = np.zeros((16, 16))
+    for call in (
+            lambda: piv_multipass(frame, frame, PivSettings(
+                windowsizes=(8,), overlap=(4,))),
+            lambda: generate_events(torch.Generator(), 8, 4, 4),
+            lambda: generate_dense_optical_flow(torch.Generator(), (4, 4)),
+            lambda: generate_uniform_optical_flow((4, 4)),
+            lambda: FrameFlowEstimator()):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
 def test_chip_smoke_fails_without_a_gpu():
     torch = pytest.importorskip("torch")
     if torch.cuda.is_available():

@@ -145,6 +145,34 @@ def inject_init(monkeypatch, facades_module, init, solver="pyramid"):
     monkeypatch.setattr(facades_module, name, estimator)
 
 
+def jax_piv_multipass64(frame_a, frame_b, settings):
+    """The JAX package's ``piv_multipass`` in float64 (that function casts
+    the frames to float32): its passes (``piv._one_iteration``), ROI crop
+    and output layout, on float64 frames."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    import event_based_bos_tpu.piv as jpiv
+
+    fa = jnp.asarray(frame_a, jnp.float64)
+    fb = jnp.asarray(frame_b, jnp.float64)
+    x0, x1, y0, y1 = settings.roi or (0, fa.shape[0], 0, fa.shape[1])
+    fa, fb = fa[x0:x1, y0:y1], fb[x0:x1, y0:y1]
+    st = tuple(getattr(settings, f.name)
+               for f in dataclasses.fields(settings))
+    passes = [(w, o) for w, o in zip(settings.windowsizes, settings.overlap)
+              if min(fa.shape) >= w]
+    dense = None
+    for k, (w, o) in enumerate(passes):
+        dense = jpiv._one_iteration(fa, fb, int(w), int(o), st, dense,
+                                    k == len(passes) - 1)
+    out = np.zeros((2,) + np.shape(frame_a))
+    out[:, x0:x1, y0:y1] = (np.asarray(dense) / settings.scaling_factor
+                            / settings.dt)
+    return out
+
+
 @contextlib.contextmanager
 def torch_threads(n):
     """Run the block with ``n`` torch intra-op threads.  The solves of the
