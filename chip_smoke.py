@@ -172,7 +172,25 @@ failure:
    bins), the discretized volume (B = 10), the time image, the IWA (3 vote
    launches) and the bilinear, max, upwind and Burgers flow voxels (5
    bins), card vs CPU ≤ 1e-5 relative; each path's ms printed beside the
-   card's name and power limit.
+   card's name and power limit;
+13. the wire and the mesh at full width, on phase 6's loader and solver
+   section: one 523,264-event window uploaded directly, by the default
+   upload (bit for bit the direct one) and by the t-less ``quantized_upload:
+   true`` wire (x, y, p, valid bit for bit), with the bytes a window (16
+   against 5 and 9 B/event) and each route's upload (+ decode) ms of CUDA
+   events; phase 6's 3-frame serving loop with ``quantized_upload: true``
+   and ``flow_fetch_dtype: float16`` (every flow within float16 rounding of
+   phase 6's, the error texts within 2e-3 px and 0.05 for the nPE
+   percentages, two vote launches a frame); ``cli.main`` with ``mesh:
+   {data: 1, event: 1}`` on phase 6's frames (flows bit-identical to phase
+   6's, a polarity-plane vote and the event mask a frame); the vote
+   kernel against its plain version on a rank's half-capacity
+   polarity-plane vote (bit for bit); four ranks sharing the card (a 2×2
+   mesh over gloo, spawned) at 60 iterations: the batched step on 2
+   frames, the multi-start with R = 4 over data 2 and 2 sequential lanes ×
+   3 steps, each bit-identical to the same solves in this process from
+   the same inits, with ms a step, the all-reduce of [2, 720, 1280]
+   float32 planes through the host and 5 vote launches a rank.
 
 Prints the whole run's seconds, a ``kernels`` JSON line, the
 ``nvidia-smi`` line, and last
@@ -3168,6 +3186,454 @@ def run_remaining_ops(device, loader):
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the wire and the mesh
+# ---------------------------------------------------------------------------
+
+MESH_ITERS = 60
+MESH_INPUTS = os.path.join(SERVE_DIR, "mesh_inputs.npz")
+
+
+def same_bits(a, b):
+    """Two tensors of one dtype and shape with equal bytes (−0.0 and +0.0
+    differ; so would two NaN payloads)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return torch.equal(a.contiguous().view(torch.uint8),
+                       b.contiguous().view(torch.uint8))
+
+
+def within_f16_rounding(got, want):
+    """``got`` within float16 rounding of ``want``: relative 2⁻¹¹ plus one
+    float16 ulp at 0 (2⁻²⁴), with 2⁻⁹ of slack for the float32 rounding of
+    the loop's time rescale on both sides."""
+    import numpy as np
+
+    err = np.abs(got.astype(np.float64) - want)
+    return bool(np.all(err <= 2.0 ** -11 * (1 + 2.0 ** -9) * np.abs(want)
+                       + 2.0 ** -24))
+
+
+def median_ms(fn, reps=5):
+    import statistics
+
+    return statistics.median(device_ms(fn)[1] for _ in range(reps))
+
+
+def check_uploads(device, window):
+    """(a) the wire on one full window: the default upload equals the
+    direct upload bit for bit, the ``quantized_upload: true`` t-less wire
+    decodes x, y, p and valid bit for bit; bytes a window and ms of each
+    route (CUDA events around upload + decode; the host encode apart)."""
+    import numpy as np
+
+    from event_based_bos_tpu_torch import solver
+    from event_based_bos_tpu_torch.types import (
+        bucket_capacity, decode_wire_events, encode_wire_events,
+        events_from_ndarray, wire_nbytes)
+
+    n, cap = len(window), bucket_capacity(len(window))
+    config = serving_config("wire")
+    solv = solver.collections["patch_eklt_pyramid2"](
+        (H, W), (H, W), solver_config=config["solver"], device=device)
+    direct = events_from_ndarray(window, capacity=cap, device=device)
+    default = solv._to_events(window)
+    default_same = all(same_bits(a, b) for a, b in zip(default, direct))
+    wires = {include_t: encode_wire_events(window, cap, include_t=include_t)
+             for include_t in (False, True)}
+    tless = decode_wire_events(wires[False], device=device)
+    tless_same = all(same_bits(getattr(tless, f), getattr(direct, f))
+                     for f in ("x", "y", "p", "valid"))
+    t0 = time.perf_counter()
+    for _ in range(5):
+        encode_wire_events(window, cap, include_t=False)
+    encode_ms = 1e3 * (time.perf_counter() - t0) / 5
+    out = {
+        "events": n, "capacity": cap,
+        "bytes_per_event": {"direct": 16.0,
+                            "wire_tless": wire_nbytes(wires[False]) / n,
+                            "wire_t": wire_nbytes(wires[True]) / n},
+        "ms": {"direct": median_ms(lambda: events_from_ndarray(
+                   window, capacity=cap, device=device)),
+               "wire_tless": median_ms(lambda: decode_wire_events(
+                   wires[False], device=device)),
+               "wire_t": median_ms(lambda: decode_wire_events(
+                   wires[True], device=device)),
+               "encode_tless_host": encode_ms},
+        "default_bit_identical": default_same,
+        "tless_bit_identical": tless_same}
+    print(f"wire: {n} events (capacity {cap}); bytes/event direct 16 "
+          f"(4 float32 fields), t-less wire "
+          f"{out['bytes_per_event']['wire_tless']:.4f}, with t "
+          f"{out['bytes_per_event']['wire_t']:.4f}; upload ms (CUDA events) "
+          f"direct {out['ms']['direct']:.3f}, t-less upload + decode "
+          f"{out['ms']['wire_tless']:.3f}, with t "
+          f"{out['ms']['wire_t']:.3f}; host encode {encode_ms:.3f} ms; "
+          f"default upload bit-identical to direct {default_same}; t-less "
+          f"x, y, p, valid bit-identical {tless_same}")
+    assert default_same, "the default upload differs from the direct one"
+    assert tless_same, "the t-less wire decodes other x, y, p or valid"
+    return out
+
+
+def error_texts(out_dir):
+    from event_based_bos_tpu_torch.utils import read_flow_error_text
+
+    return {name: read_flow_error_text(os.path.join(out_dir, name))[0]
+            for name in SERVE_TEXTS}
+
+
+def run_wire_serving(device, loader, gt):
+    """(a) phase 6's 3-frame serving loop with ``quantized_upload: true``
+    and ``flow_fetch_dtype: float16`` (phase 6's generator stream): every
+    flow within float16 rounding of phase 6's float32 flow, the error
+    texts within the JAX package's bound (2e-3 px, 0.05 for the nPE
+    percentages), two vote launches a frame."""
+    import numpy as np
+
+    config = serving_config("wire_f16")
+    config["solver"].update(quantized_upload=True,
+                            flow_fetch_dtype="float16")
+    solv, launches, callers, _first, ms, _lines = drive_serving(
+        config, loader, device, gt)
+    check_serving_outputs(config, 3)
+    base = os.path.join(SERVE_DIR, "pyramid")
+    close = [within_f16_rounding(
+        np.load(os.path.join(config["output_dir"], f"pred_flow{i}.npy")),
+        np.load(os.path.join(base, f"pred_flow{i}.npy"))) for i in range(3)]
+    got, want = error_texts(config["output_dir"]), error_texts(base)
+    worst = {}
+    for name in SERVE_TEXTS:
+        for key, values in want[name].items():
+            tol = 0.05 if key.endswith("PE") and key != "EPE" else 2e-3
+            dev = float(np.max(np.abs(np.asarray(got[name][key], float)
+                                      - np.asarray(values, float))))
+            worst[key] = max(worst.get(key, 0.0), dev)
+            assert dev <= tol, (name, key, dev)
+    print(f"wire serving (quantized_upload: true, flow_fetch_dtype: "
+          f"float16): {solv.iter_cnt} frames, {ms:.1f} ms/frame (wall "
+          f"clock); vote launches {launches['hat_vote_image']} "
+          f"({callers.launches()}); flows within float16 rounding of phase "
+          f"6's {close}; largest error-text deviation {worst}")
+    assert solv.wire_quantized and not solv._wire_fell_back
+    assert all(close), "a float16-fetched flow is off the rounding bound"
+    assert launches["hat_vote_image"] == 6, launches
+    return {"ms_per_frame": ms, "launches": launches["hat_vote_image"],
+            "text_deviation": worst}
+
+
+def run_mesh_cli(device):
+    """(b) ``cli.main`` on phase 6's config with ``mesh: {data: 1, event:
+    1}``: each frame's init drawn from the solver's generator before the
+    step, the votes as polarity planes; ``pred_flow{i}.npy`` bit-identical
+    to phase 6's."""
+    import shutil
+
+    import numpy as np
+    import yaml
+
+    from event_based_bos_tpu_torch import cli, kernels
+
+    config = serving_config("mesh11")
+    config["mesh"] = {"data": 1, "event": 1}
+    shutil.rmtree(config["output_dir"], ignore_errors=True)
+    path = config["output_dir"] + ".yaml"
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f)
+    sync(device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    assert cli.main(["--config_file", path, "--eval"], device=device) == 0
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    kernels.reset_launches()
+    base = os.path.join(SERVE_DIR, "pyramid")
+    same = [np.load(os.path.join(config["output_dir"],
+                                 f"pred_flow{i}.npy")).tobytes()
+            == np.load(os.path.join(base, f"pred_flow{i}.npy")).tobytes()
+            for i in range(3)]
+    print(f"mesh 1x1 through cli.main: 3 frames in {wall:.1f} s (Farnebäck "
+          f"GT and the loader's generation included); vote launches "
+          f"{launches['hat_vote_image']} (a polarity-plane vote and the "
+          f"event mask a frame); pred_flow bit-identical to phase 6's "
+          f"{same}")
+    assert all(same), "the 1x1 mesh loop's flows differ from phase 6's"
+    assert launches["hat_vote_image"] == 6, launches
+    return {"seconds": wall, "launches": launches["hat_vote_image"]}
+
+
+def mesh_solver(device, n_iter=MESH_ITERS, **extra):
+    """``configs/hot_plate1.yaml``'s pyramid at full width (phase 6's
+    solver section) at ``n_iter`` iterations, on ``device``."""
+    from event_based_bos_tpu_torch import solver
+
+    config = serving_config("mesh4")
+    config["solver"]["optimizer"]["n_iter"] = n_iter
+    config["solver"].update(extra)
+    return solver.collections["patch_eklt_pyramid2"](
+        (H, W), (H, W), solver_config=config["solver"], device=device)
+
+
+def sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def mesh_rank_phase(inputs_path, sizes):
+    """(c) on each rank of a 2×2 mesh sharing the card: the batched step
+    on 2 frames, the multi-start (R = 4 over data 2) and 2 sequential
+    lanes × 3 steps at ``MESH_ITERS``; ms a step, the all-reduce of one
+    frame's [2, H, W] float32 planes, vote launches of every rank.  Rank 0
+    returns its results.  ``sizes`` are the parent's ``H``, ``W``, ``ROI``
+    and ``CAPACITY`` (a rehearsal on the CPU shrinks them)."""
+    globals().update(sizes)
+    import dataclasses
+    import statistics
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from event_based_bos_tpu_torch import kernels
+    from event_based_bos_tpu_torch.parallel import (
+        make_mesh, make_multichip_estimator, make_multichip_multistart,
+        make_multichip_sequential, stack_events)
+    from event_based_bos_tpu_torch.parallel.mesh import all_reduce_
+    from event_based_bos_tpu_torch.types import (bucket_capacity,
+                                                 events_from_ndarray)
+
+    mesh = make_mesh((2, 2))
+    dev = mesh.device
+    if dev.type == "cuda":
+        kernels.library()
+    data = np.load(inputs_path)
+    windows, frames = data["windows"], data["frames"]
+    cap = bucket_capacity(windows.shape[1])
+    evs = [events_from_ndarray(w, capacity=cap, device=dev) for w in windows]
+    solv = mesh_solver(dev)
+    solv4 = mesh_solver(dev, n_restarts=4)
+    mask = solv._mask
+    steady = dataclasses.replace(solv.spec, n_iter=MESH_ITERS // 2)
+
+    def timed(fn):
+        dist.barrier()
+        sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    kernels.reset_launches()
+    out = {"backend": mesh.backend, "shape": mesh.axis_shape,
+           "votes_per_rank_events": cap // 2}
+    step = make_multichip_estimator(solv.spec, mesh)
+    (flows, hists), ms_batched = timed(lambda: step(
+        stack_events(evs[:2]), frames[:2], mask, data["inits_batched"]))
+    out["batched"] = (flows.cpu().numpy(), [h.cpu().numpy() for h in hists])
+    multi = make_multichip_multistart(solv4.spec, mesh)
+    (flow, hists), ms_multi = timed(lambda: multi(
+        stack_events(evs[:1]), frames[:1], mask, data["inits_multistart"]))
+    out["multistart"] = (flow.cpu().numpy(), [h.cpu().numpy() for h in hists])
+    cold, warm = make_multichip_sequential(solv.spec, mesh,
+                                           steady_spec=steady)
+    prev, seq, ms_seq = None, [], []
+    for t in range(3):
+        lanes = [evs[t], evs[(t + 1) % 3]]
+        fr = frames[[t, (t + 1) % 3]]
+        if t == 0:
+            (flows, prev, _), ms = timed(lambda: cold(
+                stack_events(lanes), fr, mask, data["inits_sequential"]))
+        else:
+            (flows, prev, _), ms = timed(lambda: warm(
+                stack_events(lanes), fr, mask, prev, [True, True]))
+        seq.append(flows.cpu().numpy())
+        ms_seq.append(ms)
+    out["sequential"] = seq
+    votes = torch.zeros(4, dtype=torch.float64)
+    votes[mesh.rank] = kernels.launches["hat_vote_image"]
+    dist.all_reduce(votes)
+    out["votes"] = votes.tolist()
+    planes = torch.ones((2, H, W), dtype=torch.float32, device=dev)
+    spans = [timed(lambda: all_reduce_(planes, mesh, "event"))[1]
+             for _ in range(5)]
+    out["ms"] = {"batched_step": ms_batched, "multistart_step": ms_multi,
+                 "sequential_steps": ms_seq,
+                 "all_reduce_2x720x1280_f32": statistics.median(spans)}
+    return out
+
+
+def mesh_references(device, inputs):
+    """The same solves in this process: the pyramid facade's route (the
+    IWE cache's signed vote, then ``estimate_frame``) from the same
+    inits."""
+    import dataclasses
+
+    import torch
+
+    from event_based_bos_tpu_torch.ops.gradients import frame_gradients
+    from event_based_bos_tpu_torch.solver.generative import iwe_cache
+    from event_based_bos_tpu_torch.solver.pyramid import (
+        estimate_frame, select_restart, solve_pyramid,
+        update_coarse_from_fine)
+    from event_based_bos_tpu_torch.types import (bucket_capacity,
+                                                 events_from_ndarray)
+
+    solv = mesh_solver(device)
+    solv4 = mesh_solver(device, n_restarts=4)
+    steady = dataclasses.replace(solv.spec, n_iter=MESH_ITERS // 2)
+    windows, frames = inputs["windows"], inputs["frames"]
+    cap = bucket_capacity(windows.shape[1])
+    evs = [events_from_ndarray(w, capacity=cap, device=device)
+           for w in windows]
+
+    def solve(b, spec, init=None, prev=None):
+        return estimate_frame(None, frames[b], solv._mask, None, spec,
+                              prev_params=prev, init_params=init,
+                              cache=iwe_cache(evs[b], spec.gen),
+                              device=device)
+
+    ref = {"batched": [solve(b, solv.spec, inputs["inits_batched"][b])
+                       for b in range(2)]}
+    hist, weights, wi = iwe_cache(evs[0], solv4.gen)
+    frame = torch.as_tensor(frames[0]).to(device=device, dtype=torch.float32)
+    gx, gy = frame_gradients(frame, ksize=solv4.gen.sobel_ksize,
+                             use_log_intensity=solv4.gen.use_log_intensity)
+    lanes = [solve_pyramid(hist, weights, wi, gx, gy, solv4._mask, None,
+                           solv4.spec, init_params=torch.as_tensor(
+                               x0, device=device))
+             for x0 in inputs["inits_multistart"]]
+    ref["multistart"] = select_restart(lanes, solv4.spec.track_best)
+    chains = []
+    for d in range(2):
+        prev, flows = None, []
+        for t in range(3):
+            b = (t + d) % 3
+            used = solv.spec if t == 0 else steady
+            flow, aux = solve(b, used, inputs["inits_sequential"][d]
+                              if prev is None else None, prev)
+            prev = update_coarse_from_fine(aux["params_per_scale"], used)
+            flows.append(flow)
+        chains.append(flows)
+    ref["sequential"] = chains
+    return ref
+
+
+def check_rank_vote(device, window):
+    """Kernel #1 on a rank's share: the polarity-plane vote of half the
+    capacity (the first event slice of a 2-rank event axis) against its
+    plain version, bit for bit on integer coordinates."""
+    import torch
+
+    from event_based_bos_tpu_torch.ops import iwe_cuda
+    from event_based_bos_tpu_torch.types import (Events, bucket_capacity,
+                                                 events_from_ndarray)
+
+    cap = bucket_capacity(len(window))
+    ev = events_from_ndarray(window, capacity=cap, device=device)
+    half = Events(*(f[:cap // 2] for f in ev))
+    got = iwe_cuda.polarity_iwe_cuda(half, (H, W), nudge=True)
+    plain = iwe_cuda.hat_vote_plain(
+        half.x.to(torch.float32), half.y.to(torch.float32), None, (H, W),
+        valid=half.valid, polarity_planes=half.p, nudge=True)
+    err = float((got - plain).abs().max())
+    print(f"mesh rank vote: {cap // 2} events into [2, {H}, {W}] polarity "
+          f"planes, kernel vs plain max|diff| {err:.3e}, bit-identical "
+          f"{same_bits(got, plain)}")
+    assert same_bits(got, plain), "the rank's polarity vote differs"
+    return err
+
+
+def run_rank_mesh(device, loader):
+    """(c) four ranks sharing the card (2×2 over gloo), each step against
+    the same solves in this process, bit for bit."""
+    import numpy as np
+    import torch
+
+    from event_based_bos_tpu_torch.parallel import launch
+    from event_based_bos_tpu_torch.solver.generative import initialize_params
+    from event_based_bos_tpu_torch.solver.pyramid import pyramid_grids
+
+    windows = loader_windows(loader)
+    counts = [len(w) for w in windows]
+    assert len(set(counts)) == 1, counts
+    solv = mesh_solver(device)
+    gen = torch.Generator(device).manual_seed(0)
+    shape = pyramid_grids(solv.spec)[0].shape
+
+    def draw(k):
+        return np.stack([initialize_params(gen, shape, solv.gen,
+                                           device).cpu().numpy()
+                         for _ in range(k)])
+
+    frames = np.stack([loader.load_image(i)[0] for i in (1, 2, 3)])
+    inputs = {"windows": np.stack(windows).astype(np.float64),
+              "frames": frames.astype(np.float32),
+              "inits_batched": draw(2), "inits_multistart": draw(4),
+              "inits_sequential": draw(2)}
+    np.savez(MESH_INPUTS, **inputs)
+    sync(device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sizes = {"H": H, "W": W, "ROI": ROI, "CAPACITY": CAPACITY}
+    got = launch.run(mesh_rank_phase, 4, args=(MESH_INPUTS, sizes),
+                     device=device, timeout=300, deadline=600)
+    wall = time.perf_counter() - t0
+    ref = mesh_references(device, inputs)
+    same = {
+        "batched": all(
+            got["batched"][0][b].tobytes()
+            == ref["batched"][b][0].cpu().numpy().tobytes()
+            and all(h[b].tobytes() == r.cpu().numpy().tobytes()
+                    for h, r in zip(got["batched"][1],
+                                    ref["batched"][b][1]["loss_history"]))
+            for b in range(2)),
+        "multistart": got["multistart"][0][0].tobytes()
+        == ref["multistart"][0].cpu().numpy().tobytes(),
+        "sequential": all(
+            got["sequential"][t][d].tobytes()
+            == ref["sequential"][d][t].cpu().numpy().tobytes()
+            for t in range(3) for d in range(2))}
+    ms = got["ms"]
+    print(f"mesh 2x2 on one card: backend {got['backend']}; 4 ranks in "
+          f"{wall:.1f} s (start-up included); ms a step: batched (2 frames) "
+          f"{ms['batched_step']:.1f}, multi-start (R = 4) "
+          f"{ms['multistart_step']:.1f}, sequential "
+          f"{[round(v, 1) for v in ms['sequential_steps']]}; all-reduce of "
+          f"[2, {H}, {W}] float32 through the host "
+          f"{ms['all_reduce_2x720x1280_f32']:.2f} ms; vote launches per "
+          f"rank {got['votes']} ({got['votes_per_rank_events']} events "
+          f"each); bit-identical to one process {same}")
+    assert got["backend"] == "gloo", got["backend"]
+    assert all(same.values()), same
+    # the launch counter moves on the card only
+    votes = 5.0 if torch.device(device).type == "cuda" else 0.0
+    assert got["votes"] == [votes] * 4, got["votes"]
+    return {"ms": ms, "seconds": wall, "votes": got["votes"],
+            "backend": got["backend"]}
+
+
+def run_wire_and_mesh(device, loader, gt):
+    """Phase 13: the wire, the 1×1 mesh through ``cli.main``, four ranks
+    sharing the card."""
+    t0 = time.perf_counter()
+    windows = loader_windows(loader, frames=(1,))
+    out = {"uploads": check_uploads(device, windows[0])}
+    out["wire_serving"] = run_wire_serving(device, loader, gt)
+    out["mesh_cli"] = run_mesh_cli(device)
+    out["rank_vote_err"] = check_rank_vote(device, windows[0])
+    out["ranks"] = run_rank_mesh(device, loader)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 13: {out['seconds']:.1f} s")
+    print(json.dumps({"wire_and_mesh": out}, default=str))
+    return out
+
+
 def main():
     import torch
 
@@ -3238,6 +3704,14 @@ def main():
     entries[0]["launches_filters"] = remaining["filters"]
     entries[0]["launches_piv"] = remaining["piv"]
     entries[0]["launches_weighted_images"] = remaining["weighted_images"]
+    wire_mesh = run_wire_and_mesh("cuda", loader, gt)
+    entries[0]["launches_wire"] = wire_mesh["wire_serving"]["launches"]
+    entries[0]["launches_mesh"] = wire_mesh["mesh_cli"]["launches"]
+    entries[0]["launches_mesh_ranks"] = wire_mesh["ranks"]["votes"]
+    entries[0]["max_abs_err"] = max(entries[0]["max_abs_err"],
+                                    wire_mesh["rank_vote_err"])
+    for entry in entries[1:]:
+        entry["launches_wire"] = entry["launches_mesh"] = 0
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": entries}))

@@ -22,6 +22,9 @@ Subpackages:
     PIV.
   * :mod:`event_based_bos_tpu_torch.data` — the synthetic BOS generator
     and the dataset loaders.
+  * :mod:`event_based_bos_tpu_torch.parallel` — meshes of ranks over
+    ``torch.distributed``: event-sharded votes, data-parallel solves,
+    sweeps, the launcher.
 """
 
 __version__ = "0.1.0"

@@ -21,8 +21,15 @@ PyTorch port's copy of the JAX package's ``cli.py``: the same flags
     python -m event_based_bos_tpu_torch.cli --config_file configs/x.yaml --eval
 
 The loop runs on the GPU; from Python, ``main(argv, device="cpu")`` runs it
-on the CPU (without a GPU the command raises).  Not ported yet, and raising
-``NotImplementedError``: ``mesh:`` (ROADMAP Queue 1 #15).
+on the CPU (without a GPU the command raises).
+
+``mesh: {data: D, event: E}`` runs the evaluation loop on D·E ranks
+(:mod:`event_based_bos_tpu_torch.parallel`): the command spawns them
+itself, or runs as one of them under ``torchrun --nproc-per-node D·E``.
+Every rank reads the frames and uploads the events; each votes its slice
+of a frame's events, the lane leaders solve, and only global rank 0
+writes (texts, ``.npy`` files, PNGs, videos, the resume manifest and
+``main.log``).
 """
 
 from __future__ import annotations
@@ -36,10 +43,11 @@ import time
 import numpy as np
 
 from .device import resolve_device
+from .solver import pyramid
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["validate_image", "evaluate_per_frames",
+__all__ = ["validate_image", "mesh_shape", "evaluate_per_frames",
            "evaluate_flow_on_event_grids", "estimate_sequential",
            "accumulate_sequential", "write_videos", "main"]
 
@@ -92,6 +100,22 @@ def evaluate_per_frames(config, loader, solv, viz, device=None,
     * ``prewarm`` builds and loads the kernels before the first frame.
     * ``debug_nans`` (set by :func:`main`) raises ``FloatingPointError``
       when a frame's flow or loss history holds a NaN or an infinity.
+    * ``mesh: {data: D, event: E}`` (in a world of D·E ranks, or 1×1 in
+      one process) solves D frames a step, one a data lane, with each
+      frame's events voted in E slices
+      (``parallel.make_multichip_estimator``); with ``n_restarts: R`` one
+      frame a step, its R restarts split over the data lanes
+      (``make_multichip_multistart``).  It needs the pyramid solver,
+      ``model_image: current`` and no ``warm_start``; each frame's
+      coarsest init is drawn from the solver's generator in frame order
+      before the step (R a frame with restarts), so a 1×1 mesh gives the
+      single-device loop's flows bit for bit.  ``mesh: {…, sequential:
+      true}`` with ``warm_start: true`` splits the frames into D
+      contiguous segments, one warm-start chain a data lane, advancing in
+      lockstep (``make_multichip_sequential``); frame numbers are the
+      frames' time-order positions, and with ``resume`` each lane skips
+      its computed frames and restarts its chain cold.  Only rank 0
+      finalizes and writes.
 
     Frames are numbered in the producer, in frame order after the
     collapsed-frame check, so resume entries map to the same frames in
@@ -104,6 +128,8 @@ def evaluate_per_frames(config, loader, solv, viz, device=None,
     any object that has its ``estimate(method, frame0, frame1, frame2,
     config)``.
     """
+    import torch
+
     from . import frame_flow, utils
     from .types import bucket_capacity
     from .utils.checkpoint import FrameResultStore
@@ -113,12 +139,59 @@ def evaluate_per_frames(config, loader, solv, viz, device=None,
     if solv.device.type != dev.type:
         raise ValueError(f"the solver runs on {solv.device}, the loop was "
                          f"asked for {dev}")
-    if config.get("mesh"):
-        raise NotImplementedError(
-            "mesh: is not ported yet (ROADMAP Queue 1 #15)")
 
-    store = (FrameResultStore(config["output_dir"])
-             if config.get("resume") else None)
+    mesh_cfg = config.get("mesh")
+    mesh_sequential = bool(mesh_cfg.get("sequential")) if mesh_cfg else False
+    batched_step = seq_steps = mesh_B = None
+    writer = True
+    if mesh_cfg:
+        from .parallel import make_mesh
+
+        mesh_B, mesh_E = mesh_shape(config)
+        mesh = make_mesh((mesh_B, mesh_E),
+                         devices=None if mesh_B * mesh_E > 1 else [dev])
+        if mesh.device != solv.device:
+            raise ValueError(f"the solver runs on {solv.device}, this rank "
+                             f"on {mesh.device}")
+        writer = mesh.rank == 0
+        shape = dict(zip(mesh.axis_names, mesh.axis_shape))
+        logger.info("Mesh %s: %d ranks, backend %s.", shape, mesh.size,
+                    mesh.backend)
+        fetch = solv._fetch_dtype
+        if mesh_sequential:
+            from .parallel import make_multichip_sequential
+
+            seq_steps = make_multichip_sequential(
+                solv.spec, mesh, steady_spec=solv.spec_steady,
+                fetch_dtype=fetch)
+            logger.info(
+                "Multi-chip sequential evaluation: mesh %s — %d warm-start "
+                "segments in lockstep%s.", shape, mesh_B,
+                (" (steady_n_iter=%d)" % solv.spec_steady.n_iter)
+                if solv.spec_steady is not None else "")
+        elif solv.spec.n_restarts > 1:
+            from .parallel import make_multichip_multistart
+
+            batched_step = make_multichip_multistart(solv.spec, mesh,
+                                                     fetch_dtype=fetch)
+            mesh_B = 1
+            logger.info(
+                "Multi-chip multi-start: mesh %s — %d restarts sharded over "
+                "the data axis, one frame per step.", shape,
+                solv.spec.n_restarts)
+        else:
+            from .parallel import make_multichip_estimator
+
+            batched_step = make_multichip_estimator(solv.spec, mesh,
+                                                    fetch_dtype=fetch)
+            logger.info("Multi-chip evaluation: mesh %s — %d frames per "
+                        "step.", shape, mesh_B)
+
+    # every rank makes the same resume decisions; only rank 0 records
+    store = None
+    if config.get("resume"):
+        store = (FrameResultStore(config["output_dir"]) if writer
+                 else _computed_frames(config["output_dir"]))
     timer = Timer() if config.get("profile") else None
     # the steady-state breakdown: a second timer engaged after the second
     # finalize, reported against the steady wall clock
@@ -133,7 +206,8 @@ def evaluate_per_frames(config, loader, solv, viz, device=None,
     cropped_shape = (config["data"]["crop_height"],
                      config["data"]["crop_width"])
     # the timestamps matter downstream only to the event-warp views and
-    # FWL (the port's direct upload carries them either way)
+    # FWL; without either, the pyramid (a t-free solve) uploads the t-less
+    # wire, 5 B/event
     need_t_downstream = viz is not None or "fwl" in metrics
     eval_dt = eval_config["dt"]
     n_events = config["data"].get("n_events_per_batch")
@@ -181,10 +255,11 @@ def evaluate_per_frames(config, loader, solv, viz, device=None,
     # producer-side frame counter, in production order
     _next_frame = [0]
 
-    def produce(i1):
+    def produce(i1, fi_override=None):
         """Host stage: frame IO, collapse check, frame numbering, resume
         lookup, GT flow and event window, then the filter and the upload.
-        Returns ``(tag, i_frame, work)``."""
+        Returns ``(tag, i_frame, work)``.  ``fi_override`` (sequential mesh
+        mode) numbers the frame by its time-order position."""
         with _section("prepare"):
             i2 = i1 + eval_dt
             im1, t1 = loader.load_image(i1)
@@ -194,8 +269,11 @@ def evaluate_per_frames(config, loader, solv, viz, device=None,
             if frame1.shape != cropped_shape or frame2.shape != cropped_shape:
                 logger.warning("Frame may be collapsed — i1=%s i2=%s", i1, i2)
                 return ("collapsed", None, None)
-            fi = _next_frame[0]
-            _next_frame[0] = fi + 1
+            if fi_override is not None:
+                fi = fi_override
+            else:
+                fi = _next_frame[0]
+                _next_frame[0] = fi + 1
             if store is not None and fi in store:
                 return ("resumed", fi, None)
             work = _prepare_work(im1, t1, t2, frame1, frame2)
@@ -207,8 +285,9 @@ def evaluate_per_frames(config, loader, solv, viz, device=None,
         return ("work", fi, work)
 
     def _prepare_work(im1, t1, t2, frame1, frame2):
-        gt_flow = estimator.estimate(config["method"], _frame0, frame1,
-                                     frame2, config)
+        # the GT serves the error texts, which rank 0 alone writes
+        gt_flow = (estimator.estimate(config["method"], _frame0, frame1,
+                                      frame2, config) if writer else None)
         ind1 = loader.time_to_index(t1)
         ind2 = loader.time_to_index(t2)
         # the original window's events, for the event image of the
@@ -345,21 +424,162 @@ def evaluate_per_frames(config, loader, solv, viz, device=None,
             store.record(i_frame, flow=estimation, t1=float(t1),
                          t2=float(t2), **err_nomask)
 
+    def _inits(n):
+        """``n`` coarsest-scale inits from the solver's generator, drawn
+        as its solve would draw them (``pyramid.initialize_params`` looked
+        up at call time)."""
+        shape = pyramid.pyramid_grids(solv.spec)[0].shape
+        return [pyramid.initialize_params(solv._generator, shape, solv.gen,
+                                          solv.device) for _ in range(n)]
+
+    def _lane_handle(flow_j, hist_j):
+        """One lane's finalize handle (both mesh loops): the loss curve of
+        each scale, then the flow in float32 (whatever the fetch dtype),
+        oriented — the single-device finalize's contract."""
+        from .solver.api import EstimationHandle
+
+        def _fin():
+            if solv.visualizer is not None:
+                solv.visualizer.visualize_scipy_history(
+                    {f"scale{i}": h.cpu().numpy()
+                     for i, h in enumerate(hist_j)})
+            solv.iter_cnt += 1
+            return solv._orient_flow(flow_j.to(torch.float32).cpu().numpy())
+
+        handle = EstimationHandle(_fin)
+        handle.loss_history = hist_j
+        return handle
+
+    def _stacked(items, frames_of):
+        """The events of ``items`` padded to one capacity and stacked, and
+        the frames ``frames_of`` on the solver's device."""
+        from .parallel import stack_events
+        from .types import pad_events
+
+        cap = max(w["filtered"].capacity for w in items)
+        ev_b = stack_events([pad_events(w["filtered"], cap) for w in items])
+        frames = torch.as_tensor(np.stack(frames_of)).to(
+            device=solv.device, dtype=solv.dtype)
+        return ev_b, frames
+
+    def flush_batch(pending):
+        """Solve ``pending`` = [(i_frame, work)] in one data-parallel step
+        over the mesh (a partial last batch padded with its last frame),
+        then finalize each frame in order (rank 0)."""
+        with _section("estimate"):
+            works = [w for _, w in pending]
+            # R inits a frame with restarts (the batched step has R = 1)
+            per_frame = solv.spec.n_restarts
+            inits = []
+            for _ in works:
+                inits += _inits(per_frame)
+            pad = mesh_B - len(works)
+            works_b = works + [works[-1]] * pad
+            inits += inits[-per_frame:] * pad
+            ev_b, frames = _stacked(works_b, [w["im1"] for w in works_b])
+            flows, losses = batched_step(ev_b, frames, solv._mask,
+                                         torch.stack(inits))
+        if writer:
+            for j, (fi, w) in enumerate(pending):
+                finalize(w, _lane_handle(flows[j], [h[j] for h in losses]),
+                         fi)
+
+    def run_segmented(indices):
+        """Sequential mesh mode: split ``indices`` into ``mesh_B``
+        contiguous segments, one warm-start chain a data lane; step *t*
+        solves frame *t* of every segment in one step, each lane's
+        feedback kept on its leader's device.  A collapsed or exhausted
+        lane solves a dummy (another lane's frame) whose feedback is gated
+        out; the chain resets at each ``time_list`` range.  With
+        ``resume`` a lane skips its computed leading frames and restarts
+        cold at its first uncomputed one.  Step *t+1* is prepared on the
+        host before step *t* is finalized."""
+        step_cold, step_warm = seq_steps
+        idx = list(indices)
+        if not idx:
+            return
+        base = _next_frame[0]
+        _next_frame[0] = base + len(idx)
+        bounds = [round(d * len(idx) / mesh_B) for d in range(mesh_B + 1)]
+        segments = [idx[bounds[d]:bounds[d + 1]] for d in range(mesh_B)]
+        skips = [0] * mesh_B
+        if store is not None:
+            for d in range(mesh_B):
+                while (skips[d] < len(segments[d])
+                       and (base + bounds[d] + skips[d]) in store):
+                    skips[d] += 1
+            if any(skips):
+                logger.info(
+                    "Resuming sequential mesh: lanes skip %s already-"
+                    "computed frames; resumed lanes restart their warm "
+                    "chain cold.", skips)
+            segments = [s[k:] for s, k in zip(segments, skips)]
+        n_steps = max(len(s) for s in segments)
+
+        def _produce_step(t):
+            lane_items = []  # (fi, work-or-None) per lane
+            for d in range(mesh_B):
+                if t < len(segments[d]):
+                    fi = base + bounds[d] + skips[d] + t
+                    tag, _, work = produce(segments[d][t], fi_override=fi)
+                    lane_items.append((fi, work if tag == "work" else None))
+                else:
+                    lane_items.append((None, None))  # exhausted lane
+            return lane_items
+
+        prev, warm = None, False
+        lane_items = _produce_step(0)
+        for t in range(n_steps):
+            dispatched = None
+            dummy = next((w for _, w in lane_items if w is not None), None)
+            if dummy is not None:  # else: the whole step collapsed
+                with _section("estimate"):
+                    works = [w if w is not None else dummy
+                             for _, w in lane_items]
+                    ev_b, frames = _stacked(works, [w["im1"] for w in works])
+                    if not warm:
+                        flows, prev, losses = step_cold(
+                            ev_b, frames, solv._mask,
+                            torch.stack(_inits(mesh_B)))
+                        warm = True
+                    else:
+                        flows, prev, losses = step_warm(
+                            ev_b, frames, solv._mask, prev,
+                            [w is not None for _, w in lane_items])
+                dispatched = (lane_items, flows, losses)
+            lane_items = _produce_step(t + 1) if t + 1 < n_steps else None
+            if dispatched is not None and writer:
+                items, flows, losses = dispatched
+                for j, (fi, w) in enumerate(items):
+                    if w is not None:
+                        finalize(w, _lane_handle(
+                            flows[j], [h[j] for h in losses]), fi)
+
     for t_start, t_end in eval_config["time_list"]:
         ind_start = loader.time_to_image_index(t_start) + 1
         ind_end = loader.time_to_image_index(t_end) - eval_dt
         logger.info("Evaluating frames %d..%d", ind_start, ind_end)
         indices = range(ind_start, ind_end)
+        if mesh_sequential:
+            run_segmented(indices)
+            continue
         # one-deep software pipeline: produce(i+1) ‖ solve(i) ‖ finalize(i−1)
         stream = (_prefetched(indices, produce) if pipeline
                   else (produce(i1) for i1 in indices))
         in_flight = None  # (work, handle, i_frame)
+        pending = []  # mesh: frames waiting for a full data-parallel step
         for tag, fi, work in stream:
             if tag == "collapsed":
                 continue
             if tag == "resumed":
                 logger.info("Frame %d already computed — skipping (resume).",
                             fi)
+                continue
+            if batched_step is not None:
+                pending.append((fi, work))
+                if len(pending) == mesh_B:
+                    flush_batch(pending)
+                    pending = []
                 continue
             handle = dispatch(work)
             if pipeline:
@@ -371,6 +591,8 @@ def evaluate_per_frames(config, loader, solv, viz, device=None,
                 with _section("estimate"):
                     _wait_for_card()
                 finalize(work, handle, fi)
+        if pending:
+            flush_batch(pending)
         if in_flight is not None:
             finalize(*in_flight)
     if timer is not None:
@@ -383,6 +605,60 @@ def evaluate_per_frames(config, loader, solv, viz, device=None,
                 "s/frame) — shares of the steady wall:\n%s",
                 n_steady, wall / n_steady,
                 steady_timer.report(n_frames=n_steady, wall_s=wall))
+
+
+def mesh_shape(config) -> tuple:
+    """``(D, E)`` of the config's ``mesh:`` after its checks (the JAX
+    CLI's): the pyramid solver, ``warm_start`` only with ``sequential:
+    true`` (which needs it), ``model_image: current``, a power-of-two
+    event axis.  Logs what resume and pipeline mean in sequential mode."""
+    mesh_cfg = config["mesh"]
+    sequential = bool(mesh_cfg.get("sequential"))
+    solver = config["solver"]
+    if solver.get("method") != "patch_eklt_pyramid2":
+        raise ValueError("mesh mode needs the patch_eklt_pyramid2 solver")
+    if solver.get("warm_start") and not sequential:
+        raise ValueError("warm_start is sequential — incompatible with "
+                         "mesh (simultaneous) frame batching; to scale "
+                         "the warm-start chain across chips set "
+                         "mesh: {sequential: true} (contiguous frame "
+                         "segments, one warm chain per data lane)")
+    if sequential:
+        if not solver.get("warm_start"):
+            raise ValueError("mesh: {sequential: true} scales the "
+                             "warm-start chain — set solver "
+                             "warm_start: true")
+        if config.get("resume"):
+            logger.info("resume in sequential mesh mode: resumed lanes "
+                        "restart their warm chain cold at their first "
+                        "uncomputed frame.")
+        if config.get("pipeline"):
+            logger.info("pipeline: true is implicit in sequential mesh "
+                        "mode — the segmented loop overlaps host prep "
+                        "with the in-flight device step.")
+    if solver.get("generative_ml", {}).get("model_image",
+                                           "current") != "current":
+        raise ValueError("mesh mode supports model_image: current")
+    mesh_e = int(mesh_cfg.get("event", 1))
+    if mesh_e < 1 or mesh_e & (mesh_e - 1):
+        raise ValueError(f"mesh event axis must be a power of two to "
+                         f"divide the padded event buckets, got {mesh_e}")
+    return int(mesh_cfg.get("data", 1)), mesh_e
+
+
+def _computed_frames(directory) -> set:
+    """The frame numbers of the resume manifest in ``directory``, read
+    without writing (the ranks that do not record)."""
+    import json
+
+    from .utils.checkpoint import FrameResultStore
+
+    path = os.path.join(directory, FrameResultStore.MANIFEST)
+    try:
+        with open(path) as f:
+            return {int(k) for k in json.load(f)}
+    except (OSError, ValueError):
+        return set()
 
 
 def _check_finite(i_frame, flow, loss_history) -> None:
@@ -573,21 +849,51 @@ def write_videos(viz, solv) -> None:
 
 def main(argv=None, device=None):
     """Run the CLI with ``argv`` (``sys.argv[1:]`` by default) on
-    ``device`` (the GPU unless the caller asks for another)."""
+    ``device`` (the GPU unless the caller asks for another).
+
+    An evaluation with ``mesh: {data: D, event: E}`` and D·E > 1 runs on
+    D·E ranks: inside a process group of that size (``torchrun``) this
+    process is one of them, otherwise it spawns them and returns when all
+    have finished (a failed rank's exception is raised here).  Rank 0
+    alone writes.
+    """
+    import torch.distributed
+
     from . import data, solver, utils, visualizer
+    from .parallel import launch
+    from .parallel.mesh import world_size
 
     dev = resolve_device(device)
+    argv = sys.argv[1:] if argv is None else list(argv)
     config, args = utils.parse_args(argv=argv)
+    if (args.eval and config.get("mesh")
+            and config.get("estimation_method") == "solver"):
+        n_ranks = int(np.prod(mesh_shape(config)))
+        if n_ranks > 1 and world_size() == 1:
+            return launch.run(main, n_ranks, args=(argv, device),
+                              device=dev)
+    in_group = world_size() > 1
+    writer = not in_group or torch.distributed.get_rank() == 0
+    if in_group:
+        dev = launch.rank_device()
     data_config = config["data"]
     save_dir = config["output_dir"]
-    utils.save_config(save_dir, args.config_file, args.log.upper())
+    if writer:
+        utils.save_config(save_dir, args.config_file, args.log.upper())
 
     if args.eval:
         assert config["method"] in SUPPORTED_EVALUATION_METHOD
         assert config["estimation_method"] in SUPPORTED_ESTIMATION_METHOD
 
+    if in_group and not writer:
+        # rank 0 opens the recording first: a loader may write a cache
+        # beside it (the CCS loader's extracted frames)
+        torch.distributed.barrier()
     loader = data.collections[data_config["dataset"]](config=data_config)
     loader.set_sequence(data_config["sequence"])
+    if in_group and writer:
+        loader.load_image(0)
+        torch.distributed.barrier()
 
     orig_shape = (data_config["height"], data_config["width"])
     crop_shape = (data_config["crop_height"], data_config["crop_width"])
@@ -601,7 +907,7 @@ def main(argv=None, device=None):
         serving = False
     # PNG encodes and history plots run on the writer thread, flushed
     # before the videos are assembled
-    viz = (None if serving else
+    viz = (None if serving or not writer else
            visualizer.Visualizer(orig_shape, save=True, show=False,
                                  save_dir=save_dir, async_writes=True,
                                  device=dev))
@@ -630,7 +936,7 @@ def main(argv=None, device=None):
     if viz is not None:
         write_videos(viz, solv)
 
-    if args.eval:
+    if args.eval and writer:
         for fname in solv.evaluation_text_list:
             _data, stat = utils.read_flow_error_text(fname)
             logger.info("Evaluation %s:\n%s", fname, stat)

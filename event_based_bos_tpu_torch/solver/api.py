@@ -13,12 +13,12 @@ full-frame planes that the port's bundle returns directly.  The concrete
 facades live in :mod:`.facades` (re-exported here).
 
 The solver runs on the GPU unless it is built with ``device="cpu"``; with no
-GPU it raises.  Event batches are uploaded directly
-(``types.events_from_ndarray``, the upload half of the JAX package's
-``solver/wire.py``); the quantized wire and the reduced-precision flow fetch
-are not ported yet (ROADMAP Queue 1 #16).  The solver's random draws come
-from one ``torch.Generator`` on its device, seeded by ``seed``, drawn in
-dispatch order.
+GPU it raises.  Event batches reach the device through :mod:`.wire` (the
+``quantized_upload`` and ``flow_fetch_dtype`` keys); with
+``flow_fetch_dtype`` the GT the error pair and the render bundle upload is
+rounded to that dtype too, as the estimate is.  The solver's random draws
+come from one ``torch.Generator`` on its device, seeded by ``seed``, drawn
+in dispatch order.
 
 Device results reach the host through :func:`fetch_later`: the copies are
 queued right behind the work that makes them and waited for only when the
@@ -46,8 +46,9 @@ from ..device import resolve_device
 from ..ops.events import time_period
 from ..ops.filters import EventFilter
 from ..ops.warp import warp_event
-from ..types import Events, bucket_capacity, events_from_ndarray
+from ..types import Events
 from . import programs
+from .wire import WireUploadMixin
 
 logger = logging.getLogger(__name__)
 
@@ -115,8 +116,17 @@ class EstimationHandle:
         return self._result
 
 
-class SolverBase:
+class SolverBase(WireUploadMixin):
     """The reference's ``SolverBase`` API over the port's estimators."""
+
+    #: whether the facade casts the fetched flow to ``flow_fetch_dtype``
+    #: (the others reject the option)
+    SUPPORTS_FLOW_FETCH_DTYPE = False
+
+    #: whether the facade's solve reads event timestamps; a facade whose
+    #: events enter only through the polarity histogram sets this False,
+    #: so that :meth:`preprocess` honours ``need_t=False`` (the t-less wire)
+    EVENTS_NEED_T = True
 
     def __init__(self, orig_image_shape, crop_image_shape,
                  calibration_parameter=None, solver_config=None,
@@ -159,40 +169,8 @@ class SolverBase:
             int(self.slv_config.get("seed", 0)))
         self.iter_cnt = 0       # frames finalized
         self.dispatch_cnt = 0   # frames dispatched (pipelined mode runs ahead)
-        self._check_wire(self.slv_config)
+        self._init_wire(self.slv_config)
         logger.info("Solver configuration: %s", self.slv_config)
-
-    @staticmethod
-    def _check_wire(slv_config: dict) -> None:
-        """The upload and fetch options: the direct upload and the float32
-        fetch are the port's; the quantized wire (whose default
-        opportunistic mode is bit-identical to the direct upload) and the
-        reduced-precision fetch are not ported yet."""
-        qu = slv_config.get("quantized_upload", False)
-        if qu in (True, "exact", "round"):
-            raise NotImplementedError(
-                f"quantized_upload: {qu!r} is not ported yet (ROADMAP Queue "
-                f"1 #16); the port uploads events directly")
-        if qu not in (False, None, "direct"):
-            raise ValueError(f"quantized_upload: unknown mode {qu!r} "
-                             "(expected true, 'exact', 'round' or 'direct')")
-        fetch = str(slv_config.get("flow_fetch_dtype", "float32"))
-        if fetch in ("float16", "bfloat16"):
-            raise NotImplementedError(
-                f"flow_fetch_dtype: {fetch} is not ported yet (ROADMAP Queue "
-                f"1 #16); the port fetches float32")
-        if fetch != "float32":
-            raise ValueError(f"flow_fetch_dtype: unknown dtype {fetch!r} "
-                             "(expected float32, float16 or bfloat16)")
-
-    def _to_events(self, events) -> Events:
-        """Upload an ``(n, 4)`` event array to the solver's device in a
-        power-of-two capacity (or pass :class:`Events` through)."""
-        if isinstance(events, Events):
-            return events
-        arr = np.asarray(events)
-        return events_from_ndarray(arr, capacity=bucket_capacity(len(arr)),
-                                   dtype=self.dtype, device=self.device)
 
     def _frame(self, kwargs) -> torch.Tensor:
         """The model frame on the solver's device, in its dtype."""
@@ -211,10 +189,13 @@ class SolverBase:
         """Filter and upload events; returns ``(events, time_period)``.
 
         An ``(n, 4)`` array is filtered on the host before the upload (the
-        period comes from the raw array); :class:`Events` are filtered on
-        their device.  ``need_t`` is accepted for the JAX package's
-        signature: the direct upload always carries the timestamps.
+        period comes from the raw array, whatever the wire carries);
+        :class:`Events` are filtered on their device.  ``need_t=False``
+        declares that the caller will not read the timestamps (no FWL, no
+        event-warp views): on a facade whose solve is t-free
+        (``EVENTS_NEED_T = False``) the array then takes the t-less wire.
         """
+        carry_t = self.EVENTS_NEED_T or need_t is None or bool(need_t)
         if isinstance(events, np.ndarray):
             num_orig = len(events)
             period = (float(events[:, 2].max() - events[:, 2].min())
@@ -223,7 +204,7 @@ class SolverBase:
                 events = self.filter_set.process_numpy(events)
                 logger.info("After preprocessing %d out of %d.",
                             len(events), num_orig)
-            return self._to_events(events), period
+            return self._to_events(events, need_t=carry_t), period
 
         ev = self._to_events(events)
         num_orig = int(ev.count())
@@ -255,6 +236,21 @@ class SolverBase:
         """A host array on the solver's device, in its own dtype."""
         return torch.as_tensor(np.asarray(a)).to(self.device)
 
+    def _gt_array(self, gt) -> torch.Tensor:
+        """The GT flow on the device; with ``flow_fetch_dtype`` rounded to
+        that dtype on the host (half the upload) and widened to float32 on
+        the device, so that it carries the estimate's precision."""
+        fetch = self._fetch_dtype
+        if fetch is None:
+            return self._device_array(gt)
+        if fetch == torch.float16:
+            # numpy rounds float64 to float16 once (torch goes through
+            # float32)
+            host = torch.from_numpy(np.asarray(gt, np.float16))
+        else:
+            host = torch.as_tensor(np.asarray(gt)).to(fetch)
+        return host.to(self.device).to(torch.float32)
+
     def calculate_flow_errors(self, pred_disp, gt_flow, events,
                               roi: dict) -> tuple:
         """The (unmasked, event-masked) error dicts of the ROI-cropped host
@@ -278,7 +274,7 @@ class SolverBase:
         ev = self._to_events(events)
         sign = -1.0 if self.flow_convention == "physical" else 1.0
         x0, x1, y0, y1 = crop
-        gt_c = self._device_array(np.asarray(gt_flow)[:, x0:x1, y0:y1])
+        gt_c = self._gt_array(np.asarray(gt_flow)[:, x0:x1, y0:y1])
         errors = _errors_later(programs.flow_error_pair_device(
             ev, est_device, gt_c, sign, self.orig_image_shape, tuple(crop)))
 
@@ -383,7 +379,7 @@ class SolverBase:
             sc = 1.0
             err_sc = 1.0 / float(est_scale) if est_scale else 1.0
         out = programs.render_bundle(
-            ev, est_in, self._device_array(gt_flow), self.orig_image_shape,
+            ev, est_in, self._gt_array(gt_flow), self.orig_image_shape,
             float(self.iwe_visualize_max_scale), sc, err_sc, err_crop)
         planes = fetch_later([out["clipped"], out["mask"], out["poisson_est"],
                               out["poisson_gt"], *out["polar_est"],

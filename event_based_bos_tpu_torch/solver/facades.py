@@ -215,7 +215,16 @@ class PatchEkltPyramid2(SolverBase):
     inits in lane order inside :meth:`estimate_async`, before the first
     lane runs, so the pipelined loop stays bit-identical to the
     synchronous one.
+
+    ``flow_fetch_dtype: float16`` / ``bfloat16`` casts the flow on the
+    device before the ROI box is fetched (the host gets float32 back);
+    ``handle.device_flow`` is then the cast full-frame flow.  The solve
+    reads events only through the polarity histogram, so an array uploads
+    without timestamps (the t-less wire, 5 B/event).
     """
+
+    SUPPORTS_FLOW_FETCH_DTYPE = True
+    EVENTS_NEED_T = False
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -293,7 +302,7 @@ class PatchEkltPyramid2(SolverBase):
         waits for the flow's ROI box and rebuilds the full frame, and with
         a visualizer plots the loss curve of each scale (and the recorded
         evolution, :mod:`.evolution`)."""
-        ev = self._to_events(events)
+        ev = self._to_events(events, need_t=False)
         frame = self._frame(kwargs)
         prev = self.previous_frame_best_estimation
         steady = self.spec_steady is not None and prev is not None
@@ -302,6 +311,8 @@ class PatchEkltPyramid2(SolverBase):
         flow, aux = estimate_frame(None, frame, self._mask, self._generator,
                                    used_spec, prev_params=prev, cache=cache,
                                    device=self.device)
+        if self._fetch_dtype is not None:
+            flow = flow.to(self._fetch_dtype)
         box = self._flow_fetch_box
         fetch = fetch_later([flow if box is None
                              else flow[:, box[0]:box[1], box[2]:box[3]]])
@@ -321,7 +332,7 @@ class PatchEkltPyramid2(SolverBase):
                                              used_spec, self.iter_cnt,
                                              diff_scale=self._viz_diff_scale())
             self.iter_cnt += 1
-            arr = fetch()[0].numpy().astype(np.float32)
+            arr = fetch()[0].to(torch.float32).numpy()
             if box is not None:
                 # the solve writes exact +0.0 outside the ROI, so the
                 # rebuilt frame equals the full flow bit for bit

@@ -42,11 +42,13 @@ from ..ops.image_warp import (_resize_matrix_np, warp_image_forward,
                               warp_image_shift, warp_image_stencil)
 from ..ops.iwe import cached_blur_operators as _cached_blur_operators
 from ..ops.iwe import gaussian_blur
-from ..ops.iwe_cuda import bilinear_vote_cuda, signed_vote_cuda
+from ..ops.iwe_cuda import (bilinear_vote_cuda, polarity_iwe_cuda,
+                            signed_vote_cuda)
 from ..types import Events, PatchGrid
 
-__all__ = ["GenerativeSpec", "iwe_cache_from_votes", "iwe_cache",
-           "frame_constants", "measured_increment", "dense_operators", "patch_to_dense",
+__all__ = ["GenerativeSpec", "polarity_votes", "iwe_cache_from_votes",
+           "iwe_cache", "frame_constants", "measured_increment",
+           "dense_operators", "patch_to_dense",
            "patch_to_dense_indexed", "outside_norm_sq", "patch_flow_of",
            "params_to_fields", "predict_increment", "dense_objective",
            "initialize_params", "scalar_param_dim", "unfold_scalar_params",
@@ -141,6 +143,15 @@ def _blur(image: torch.Tensor, sigma, mode: str) -> torch.Tensor:
     ops = _cached_blur_operators(tuple(image.shape[-2:]), float(sigma), mode,
                                  image.dtype, image.device)
     return gaussian_blur(image, sigma, mode=mode, operators=ops)
+
+
+def polarity_votes(ev: Events, spec: GenerativeSpec) -> torch.Tensor:
+    """The raw ``[2, H, W]`` (positive, negative) vote planes, the linear
+    part of the IWE cache, in ``spec.dtype``: one launch of the vote kernel
+    with polarity planes on the card (the scatter's floor nudge), its plain
+    version on the CPU.  Votes of event shards sum to the votes of the
+    whole batch (:mod:`event_based_bos_tpu_torch.parallel.sharding`)."""
+    return polarity_iwe_cuda(ev, spec.image_size, nudge=True).to(spec.dtype)
 
 
 def iwe_cache_from_votes(pol: torch.Tensor, spec: GenerativeSpec):

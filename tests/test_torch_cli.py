@@ -446,17 +446,135 @@ def _assert_openpiv_cli_matches_jax(tmp_path, monkeypatch, top):
 ])
 def test_options_not_ported_raise(tmp_path, monkeypatch, top, argv_eval,
                                   match):
-    """``mesh:`` is not ported (ROADMAP Queue 1 #15) and raises.  The PIV
-    options raised until #14b ported them; those cases now hold the
-    port's CLI to the JAX CLI (:func:`_assert_openpiv_cli_matches_jax`)."""
+    """These options raised until they were ported: the PIV options (#14b)
+    now hold the port's CLI to the JAX CLI
+    (:func:`_assert_openpiv_cli_matches_jax`), and ``mesh: {data: 1,
+    event: 1}`` (#15) runs in one process, against the JAX CLI's 1×1 mesh
+    from one pinned init (:func:`_pin_initialize_params`)."""
     if match == "#14b":
         _assert_openpiv_cli_matches_jax(tmp_path, monkeypatch, top)
         return
-    argv, _out = _write(tmp_path, "x", small_config(**top))
-    if not argv_eval:
-        argv = argv[:-1]
-    with pytest.raises(NotImplementedError, match=match):
+    cfg = small_config(**top)
+    _pin_initialize_params(monkeypatch, pyramid_init(cfg))
+    got = _run_port(tmp_path, "torch", cfg, argv_eval)
+    want = _run_jax(tmp_path, cfg, argv_eval)
+    _assert_texts_close(got, want, TEXTS, 1e-6)
+    _assert_flows_close(got, want, 3)
+    assert "Multi-chip evaluation" in (got / "main.log").read_text()
+
+
+def _pin_initialize_params(monkeypatch, init):
+    """Every cold pyramid solve of both packages starts from ``init``:
+    ``solver.pyramid.initialize_params`` returns it (the JAX mesh steps
+    draw their init inside the jitted step, which ``inject_init`` does
+    not reach)."""
+    import jax.numpy as jnp
+
+    import event_based_bos_tpu.solver.pyramid as jpyramid
+    import event_based_bos_tpu_torch.solver.pyramid as tpyramid
+
+    monkeypatch.setattr(jpyramid, "initialize_params",
+                        lambda key, shape, spec: jnp.asarray(init,
+                                                             spec.dtype))
+    monkeypatch.setattr(tpyramid, "initialize_params",
+                        lambda generator, shape, spec, device=None:
+                        torch.as_tensor(init, dtype=spec.dtype,
+                                        device=device))
+
+
+#: the mesh configs of the rank-group cases
+MESH_CASES = {
+    "batched": ({"mesh": {"data": 2, "event": 2}}, {}),
+    "sequential": ({"mesh": {"data": 2, "event": 2, "sequential": True}},
+                   {"warm_start": True, "steady_n_iter": 6}),
+}
+
+
+def _mesh_config(case):
+    top, solver = MESH_CASES[case]
+    cfg = small_config(**top)
+    cfg["solver"].update(solver)
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def mesh_cli_runs(tmp_path_factory):
+    """The port's CLI on each mesh case in one group of four spawned CPU
+    ranks (``torch_mesh_workers.cli_runs``: a rank other than 0 that
+    writes an output raises), every cold frame from one pinned init."""
+    from event_based_bos_tpu_torch.parallel import launch
+    import torch_mesh_workers
+
+    root = tmp_path_factory.mktemp("mesh_cli")
+    argvs, outs = [], {}
+    for case in MESH_CASES:
+        argv, outs[case] = _write(root, case, _mesh_config(case))
+        argvs.append(argv)
+    init = pyramid_init(_mesh_config("batched"))
+    world = launch.run(torch_mesh_workers.cli_runs, 4, args=(argvs, init),
+                       device="cpu", timeout=120, deadline=300)
+    assert world == 4
+    return outs, init
+
+
+@pytest.mark.parametrize("case", list(MESH_CASES))
+def test_mesh_cli_matches_jax_cli(tmp_path, monkeypatch, mesh_cli_runs,
+                                  case):
+    """``mesh: {data: 2, event: 2}`` (and ``sequential: true`` with warm
+    starts) on four ranks against the JAX CLI on four virtual devices:
+    the same files (rank 0's alone), texts and flows as the plain case."""
+    outs, init = mesh_cli_runs
+    _pin_initialize_params(monkeypatch, init)
+    want = _run_jax(tmp_path, _mesh_config(case))
+    got = outs[case]
+    _assert_texts_close(got, want, TEXTS, 1e-6)
+    _assert_flows_close(got, want, 3)
+    skip = (".yaml",)
+    assert sorted(p.name for p in got.iterdir()
+                  if not p.name.endswith(skip)) == sorted(
+        p.name for p in want.iterdir() if not p.name.endswith(skip))
+    log = (got / "main.log").read_text()
+    assert "backend gloo" in log and "Multi-chip" in log
+
+
+def test_mesh_cli_spawns_its_ranks(tmp_path):
+    """``cli.main`` with ``mesh: {data: 2, event: 2}`` and no process
+    group spawns four ranks itself; each frame's init is drawn from the
+    solver's generator in frame order, so the flows and texts equal the
+    single-process loop's bit for bit (integer event coordinates)."""
+    cfg = small_config()
+    plain = _run_port(tmp_path, "plain", cfg)
+    mesh = _run_port(tmp_path, "mesh", dict(cfg, mesh={"data": 2,
+                                                       "event": 2}))
+    for name in TEXTS:
+        assert (plain / name).read_text() == (mesh / name).read_text()
+    for i in range(3):
+        assert (np.load(plain / f"pred_flow{i}.npy").tobytes()
+                == np.load(mesh / f"pred_flow{i}.npy").tobytes())
+
+
+@pytest.mark.parametrize("top,solver", [
+    ({"mesh": {"data": 2}}, {"method": "patch_eklt"}),
+    ({"mesh": {"data": 2}}, {"warm_start": True}),
+    ({"mesh": {"data": 2, "sequential": True}}, {}),
+    ({"mesh": {"data": 1, "event": 3}}, {}),
+    ({"mesh": {"data": 2}}, {"generative_ml": {"model_image": "black"}}),
+], ids=["not_pyramid", "warm_start", "sequential_cold", "event_3",
+        "model_image"])
+def test_mesh_validation_errors_match_jax(tmp_path, top, solver):
+    cfg = small_config(**top)
+    for k, v in solver.items():
+        if isinstance(v, dict):
+            cfg["solver"][k].update(v)
+        else:
+            cfg["solver"][k] = v
+    argv, _out = _write(tmp_path, "bad", cfg)
+    with pytest.raises(ValueError) as got:
         tcli.main(argv, device="cpu")
+    argv, _out = _write(tmp_path, "bad_jax", cfg)
+    with pytest.raises(ValueError) as want:
+        jcli.main(argv)
+    assert str(got.value) == str(want.value)
 
 
 def test_main_defaults_to_the_gpu(tmp_path):

@@ -247,14 +247,24 @@ def test_solver_texts_are_parsable(tmp_path):
      "#14"),
 ])
 def test_options_not_ported_or_invalid_raise(overrides, exc, match):
-    """Invalid values raise, and the wire options (ROADMAP Queue 1 #16)
-    are not ported.  ``model_image: e2vid`` raised until #14 ported the
-    E2VID loader: that case now builds as in the JAX package, and without
-    a ``generative_ml.e2vid`` loader both facades' model frame is the
-    supplied ``frame`` (``tests/test_torch_loaders.py`` holds the loader
-    route to JAX)."""
+    """Invalid values raise.  ``model_image: e2vid`` raised until #14
+    ported the E2VID loader: that case now builds as in the JAX package,
+    and without a ``generative_ml.e2vid`` loader both facades' model frame
+    is the supplied ``frame`` (``tests/test_torch_loaders.py`` holds the
+    loader route to JAX).  The wire options raised until #16 ported them:
+    those cases now build as in the JAX package, with the same upload mode
+    and fetch dtype (``tests/test_torch_wire.py`` holds them to JAX)."""
     cfg = _config()
     cfg["solver"].update(overrides)
+    if match == "#16":
+        port, jax_solv = _build(cfg, "torch"), _build(cfg, "jax")
+        assert port.wire_mode == jax_solv.wire_mode
+        assert port.wire_quantized == jax_solv.wire_quantized
+        assert (str(port._fetch_dtype).replace("torch.", "")
+                == str(np.dtype(jax_solv._fetch_dtype))
+                if jax_solv._fetch_dtype is not None
+                else port._fetch_dtype is None)
+        return
     if match == "#14":
         frame = np.arange(H * W, dtype=float).reshape(H, W)
         for package in ("torch", "jax"):

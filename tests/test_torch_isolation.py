@@ -149,6 +149,32 @@ def test_remaining_ops_and_data_are_covered_and_need_a_device():
             call()
 
 
+def test_mesh_and_wire_are_covered_and_need_a_device():
+    """``parallel/*`` and ``solver/wire.py`` are among the modules the
+    subprocess above imports without JAX, and their entry points called
+    without ``device=`` raise here (no GPU) before any rank starts."""
+    torch = pytest.importorskip("torch")
+    mods = _port_modules()
+    for m in ("parallel", "parallel.mesh", "parallel.sharding",
+              "parallel.sweep", "parallel.launch", "parallel.dryrun",
+              "solver.wire"):
+        assert f"event_based_bos_tpu_torch.{m}" in mods, m
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    from event_based_bos_tpu_torch.parallel import launch, make_mesh
+    from event_based_bos_tpu_torch.parallel.dryrun import dryrun_multichip
+    from event_based_bos_tpu_torch.types import (decode_wire_events,
+                                                 encode_wire_events)
+
+    wire = encode_wire_events(np.array([[1.0, 2.0, 0.0, 1.0]]), 4096)
+    for call in (lambda: decode_wire_events(wire),
+                 lambda: make_mesh(),
+                 lambda: launch.run(print, 2),
+                 lambda: dryrun_multichip(4)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
 def test_chip_smoke_fails_without_a_gpu():
     torch = pytest.importorskip("torch")
     if torch.cuda.is_available():
