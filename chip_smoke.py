@@ -73,7 +73,11 @@ failure:
    event mask, the first frame's flow bit-identical to ``estimate_frame``
    called directly on the same filtered events, frame and generator
    state, and the event-mask vote bit-identical to its plain version at
-   the loop's arguments.  Then two frames of ``contrast_maximization``
+   the loop's arguments.  The same three frames again with ``pipeline:
+   true`` (the prefetch thread and the non-blocking fetches): every
+   ``pred_flow{i}.npy`` and both error texts identical to the synchronous
+   run's, the same generator start and vote launches, and both ms/frame
+   printed with the card.  Then two frames of ``contrast_maximization``
    under ``CmaxSpec``'s defaults (one vote and 260 launches of each
    stencil kernel a frame, one vote for the event mask), and, where
    ``cv2`` is installed, one pyramid frame with the default Farnebäck GT.
@@ -190,7 +194,23 @@ failure:
    frames, the multi-start with R = 4 over data 2 and 2 sequential lanes ×
    3 steps, each bit-identical to the same solves in this process from
    the same inits, with ms a step, the all-reduce of [2, 720, 1280]
-   float32 planes through the host and 5 vote launches a rank.
+   float32 planes through the host and 5 vote launches a rank;
+14. the JAX package's last public names and the port's examples:
+   ``sobel_divergence`` and ``strain_variant`` on a 2×720×1280 float32
+   flow, card against CPU (≤ 1e-6 relative); ``device_fence`` and
+   ``timeit`` around the signed IWE-cache vote, beside ``cuda_ms``; a
+   ``utils.tracing.trace`` of one IWE cache, whose Chrome trace must hold
+   exactly one CUDA event of ``ebt_vote``'s kernel ``hat_vote_kernel``;
+   ``runtime.ensure_built(force=True)`` (True, ``native/`` unchanged);
+   the five ``examples/torch_0*.py`` as subprocesses with ``--device
+   cuda`` (03 with 4 ranks over gloo on the one card), each exiting 0
+   with its expected lines and its vote launches (counted in its own
+   process, 03's in each of its ranks), every one of those launches held
+   against the plain vote on CPU copies of its own arguments (≤ 1e-5
+   relative to the image's largest magnitude), 01's three contrasts
+   within 1e-5 relative of the same example run with ``--device cpu``
+   (the plain vote), 02's plume EPE below its zero-flow baseline; each
+   example's seconds with the card.
 
 Prints the whole run's seconds, a ``kernels`` JSON line, the
 ``nvidia-smi`` line, and last
@@ -1377,6 +1397,54 @@ def section_shares(lines, n_frames):
     return head, shares
 
 
+def run_pipelined(config, loader, device, gt, state, sync_ms):
+    """Phase 6's three pyramid frames again with ``pipeline: true`` and
+    otherwise the same config, loader and GT: the prefetch thread prepares
+    and uploads frame *i+1* while frame *i* is on the card, and the fetches
+    are non-blocking copies waited on through an event.  Every
+    ``pred_flow{i}.npy`` must equal the synchronous run's bit for bit, both
+    error texts line for line, the generator start the same, and the vote
+    launches one for the IWE cache and one for the event mask a frame."""
+    import numpy as np
+    import torch
+
+    pconfig = serving_config("pyramid_pipelined")
+    pconfig["pipeline"] = True
+    solv, launches, callers, first, ms, _lines = drive_serving(
+        pconfig, loader, device, gt)
+    n = solv.iter_cnt
+    per_caller = callers.launches()
+    check_serving_outputs(pconfig, 3)
+    out, sync_out = pconfig["output_dir"], config["output_dir"]
+    same_flows = []
+    for i in range(3):
+        a, b = (np.load(os.path.join(d, f"pred_flow{i}.npy"))
+                for d in (out, sync_out))
+        same_flows.append(a.tobytes() == b.tobytes())
+    same_texts = []
+    for name in SERVE_TEXTS:
+        with open(os.path.join(out, name)) as fa, \
+                open(os.path.join(sync_out, name)) as fb:
+            same_texts.append(fa.read().splitlines() == fb.read().splitlines())
+    same_state = torch.equal(first["state"], state)
+    print(f"serving pyramid, pipeline: true: {n} frames, {ms:.1f} ms/frame "
+          f"beside the synchronous {sync_ms:.1f} ms/frame (wall clock, "
+          f"{card_line()}); vote launches {launches['hat_vote_image']} "
+          f"({per_caller}); pred_flow bit-identical to the synchronous "
+          f"run's {same_flows}, error texts identical {same_texts}, same "
+          f"generator start {same_state}")
+    assert n == 3, f"{n} frames served, expected 3"
+    assert all(same_flows), "pipeline: true changed the served flows"
+    assert all(same_texts), "pipeline: true changed the error texts"
+    assert same_state, "pipeline: true started from another generator state"
+    assert per_caller == {"iwe_cache": 3, "eventmask": 3}, per_caller
+    assert all(c[3] == 1 for calls in callers.calls.values()
+               for c in calls), "a caller voted more than once a call"
+    assert launches["hat_vote_image"] == 6, launches
+    return dict(ms_per_frame=ms, sync_ms_per_frame=sync_ms, frames=n,
+                vote_launches=per_caller)
+
+
 def run_serving(device):
     """Phase 6: the serving loop at full width, pyramid then CMax."""
     import importlib.util
@@ -1450,6 +1518,8 @@ def run_serving(device):
                               vote_launches_per_frame={
                                   k: v / n for k, v in per_caller.items()},
                               epe=epe, zero_flow_epe=zero_epe)
+    results["pyramid_pipelined"] = run_pipelined(config, loader, device, gt,
+                                                 first["state"], ms)
     del solv, first, callers
 
     cconfig = serving_config("cmax", method="contrast_maximization",
@@ -3634,6 +3704,354 @@ def run_wire_and_mesh(device, loader, gt):
     return out
 
 
+TRACE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "chip_smoke_trace")
+EXAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples")
+#: each port example, its arguments after ``--device cuda``, the lines its
+#: output must hold, and its vote launches (None: in spawned ranks, whose
+#: counts are only required to be positive)
+PORT_EXAMPLES = (
+    ("torch_01_library_quickstart.py", [],
+     ("flow (0.0, 0.0): contrast", "flow (2.0, -1.0): contrast",
+      "flow (-2.0, 1.0): contrast", "grad of contrast at 0"), 3),
+    ("torch_02_solve_synthetic_frame.py", [],
+     ("EPE on the plume:", "whole-frame EPE:", "final losses per scale:"),
+     1),
+    ("torch_03_multichip_batch.py", ["--ranks", "4"],
+     ("4 ranks (gloo)", "flows: (2, 2, 96, 128) finite: True",
+      "final finest-scale losses per frame:",
+      "sequential lockstep (cold 60 iters -> warm 30): (2, 2, 96, 128) "
+      "finite: True"), None),
+    ("torch_04_custom_cost.py", [],
+     ("divergence:", "diff_norm:", "flow finite: True"), 1),
+    ("torch_05_serving_and_sweeps.py", [],
+     ("exact-ROI solve: flow (2, 128, 192)", "TPE found",
+      "decode bit-exact", "multi-start best-of-4: final loss",
+      "frame 2: steady schedule, 15 finest-scale steps"), 5),
+)
+EXAMPLE_VOTE_LIMIT = 1e-5   # relative to the plain image's largest magnitude
+# runs an example as ``__main__`` in a fresh process through
+# :func:`example_main`
+EXAMPLE_RUNNER = ("import sys, chip_smoke\n"
+                  "chip_smoke.example_main(sys.argv[1], sys.argv[2:])\n")
+
+#: this process's running check of its vote launches, once installed
+_VOTE_TALLY = None
+
+
+def checked_votes():
+    """Hold every vote kernel launch of this process against the plain vote
+    on CPU copies of the same arguments: wraps the port's ``hat_vote``
+    wherever a module of the port bound it.  Returns the running tally
+    ``{"checked", "max_rel_err"}``; the comparisons launch nothing."""
+    global _VOTE_TALLY
+    if _VOTE_TALLY is not None:
+        return _VOTE_TALLY
+    import torch
+
+    import event_based_bos_tpu_torch.solver.cmax  # noqa: F401  binds hat_vote
+    from event_based_bos_tpu_torch.ops import iwe_cuda
+
+    tally = _VOTE_TALLY = {"checked": 0, "max_rel_err": 0.0}
+    kernel = iwe_cuda.hat_vote
+
+    def host(t):
+        return t.cpu() if isinstance(t, torch.Tensor) else t
+
+    def vote(x, y, values, image_size, **kw):
+        out = kernel(x, y, values, image_size, **kw)
+        if x.device.type == "cuda":
+            # the kernel's own casts: float32 coordinates and weights
+            want = iwe_cuda.hat_vote_plain(
+                host(x).float(), host(y).float(),
+                None if values is None else host(values).float(),
+                image_size, **{k: host(v) for k, v in kw.items()})
+            got = out.cpu()
+            assert got.shape == want.shape, (got.shape, want.shape)
+            peak = float(want.abs().max()) if want.numel() else 0.0
+            err = float((got - want).abs().max()) if got.numel() else 0.0
+            tally["checked"] += 1
+            tally["max_rel_err"] = max(tally["max_rel_err"],
+                                       err / peak if peak else err)
+        return out
+
+    for name, mod in list(sys.modules.items()):
+        if (name.startswith("event_based_bos_tpu_torch")
+                and getattr(mod, "hat_vote", None) is kernel):
+            mod.hat_vote = vote
+    return tally
+
+
+def vote_report():
+    """This process's vote launches and their check."""
+    from event_based_bos_tpu_torch import kernels
+
+    return dict(checked_votes(), launches=kernels.launches["hat_vote_image"],
+                every_kernel=dict(kernels.launches))
+
+
+class CheckedRank:
+    """A mesh rank's function with its votes checked as
+    :func:`checked_votes` does; rank 0 returns the function's result and
+    every rank's :func:`vote_report` (picklable, for spawned ranks)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self, *args):
+        import torch.distributed as dist
+
+        checked_votes()
+        out = self.fn(*args)
+        reports = [vote_report()]
+        if dist.is_initialized():
+            reports = [None] * dist.get_world_size()
+            dist.all_gather_object(reports, vote_report())
+        return out, reports
+
+
+def example_main(path, argv):
+    """Run the example at ``path`` as ``__main__`` with ``argv``, its votes
+    (and its ranks' votes) checked, then print this process's
+    :func:`vote_report` and each rank's on lines of their own."""
+    import runpy
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    checked_votes()
+    from event_based_bos_tpu_torch.parallel import launch
+
+    ranks = []
+    run = launch.run
+
+    def checked_run(fn, world, *args, **kw):
+        out, reports = run(CheckedRank(fn), world, *args, **kw)
+        ranks.extend(reports)
+        return out
+
+    launch.run = checked_run
+    sys.argv = [path, *argv]
+    runpy.run_path(path, run_name="__main__")
+    print("votes " + json.dumps(vote_report()))
+    print("rank-votes " + json.dumps(ranks))
+
+
+def tree_digest(root):
+    """A hash of every file name and byte under ``root``."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for base, dirs, files in sorted(os.walk(root)):
+        dirs.sort()
+        for name in sorted(files):
+            path = os.path.join(base, name)
+            h.update(os.path.relpath(path, root).encode())
+            with open(path, "rb") as f:
+                h.update(f.read())
+    return h.hexdigest()
+
+
+def check_leftovers(device, events):
+    """(a)–(d) of phase 14: the gradient helpers card vs CPU, the timing
+    harness and the profiler trace around the vote, the forced build of
+    the native runtime."""
+    import numpy as np
+    import torch
+
+    from event_based_bos_tpu_torch import events_from_ndarray, kernels, runtime
+    from event_based_bos_tpu_torch.ops import gradients, iwe_cuda
+    from event_based_bos_tpu_torch.solver import GenerativeSpec
+    from event_based_bos_tpu_torch.solver.generative import iwe_cache
+    from event_based_bos_tpu_torch.utils import tracing
+
+    dev = torch.device(device)
+    out = {}
+    # (a) the gradient helpers on a full-width flow, card vs CPU
+    rng = np.random.default_rng(14)
+    flow = torch.as_tensor(rng.normal(size=(2, H, W)), dtype=torch.float32)
+    errs = {}
+    for name, fn in (("sobel_divergence", gradients.sobel_divergence),
+                     ("strain_variant",
+                      lambda f: gradients.strain_variant(f[0], f[1]))):
+        want = fn(flow)
+        got = fn(flow.to(dev)).cpu()
+        assert got.shape == want.shape == (H, W), (name, got.shape)
+        errs[name] = float((got - want).abs().max() / want.abs().max())
+    print(f"phase 14: sobel_divergence / strain_variant on a 2x{H}x{W} f32 "
+          f"flow, card vs CPU max relative error {errs}")
+    assert all(e <= 1e-6 for e in errs.values()), errs
+    out["gradient_rel_err"] = errs
+
+    # (b) device_fence and timeit around the signed IWE-cache vote
+    ev = events_from_ndarray(events, capacity=CAPACITY, device=dev)
+
+    def vote():
+        return iwe_cuda.signed_vote_cuda(ev, (H, W))
+
+    image = vote()
+    fence = tracing.device_fence({"image": image})
+    assert fence == float(image.sum()), (fence, float(image.sum()))
+    stats = tracing.timeit(vote, repeats=20, warmup=3)
+    event_ms = cuda_ms(vote)
+    assert sorted(stats) == ["fence_s", "max_s", "mean_s", "median_s",
+                             "min_s", "n"] and stats["n"] == 20, stats
+    print(f"phase 14: signed IWE-cache vote, timeit median "
+          f"{1e3 * stats['median_s']:.4f} ms (host clock, fenced; fence "
+          f"{1e3 * stats['fence_s']:.4f} ms) beside cuda_ms "
+          f"{event_ms:.4f} ms (device) on {card_line()}")
+    out["timeit_ms"] = 1e3 * stats["median_s"]
+    out["cuda_ms"] = event_ms
+
+    # (c) a profiler trace of one IWE cache names the vote's kernel
+    import shutil
+
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    gen = GenerativeSpec(image_size=(H, W), iwe_sigma=2.0,
+                         weight_by_inverse_event_hist=True,
+                         optimize_warp=True, poisson_model=True)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with tracing.trace(TRACE_DIR) as log_dir:
+        iwe_cache(ev, gen)
+        torch.cuda.synchronize()
+    traced = kernels.launches["hat_vote_image"]
+    files = [f for f in os.listdir(log_dir) if f.endswith(".json")]
+    assert len(files) == 1, f"trace wrote {files}"
+    with open(os.path.join(log_dir, files[0])) as f:
+        trace_events = json.load(f)["traceEvents"]
+    kernel_events = [e for e in trace_events if e.get("cat") == "kernel"]
+    votes = [e for e in kernel_events
+             if "hat_vote_kernel" in str(e.get("name"))]
+    print(f"phase 14: trace of one IWE cache: {len(kernel_events)} CUDA "
+          f"kernel events, {len(votes)} of ebt_vote's hat_vote_kernel "
+          f"({votes[0]['dur'] if votes else 'none'} us); {traced} vote "
+          f"launch counted")
+    assert traced == 1, traced
+    assert len(votes) == 1, "the trace does not name the vote kernel"
+    out["trace_vote_events"] = len(votes)
+
+    # (d) the forced build of the native runtime, outside native/
+    native = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "native")
+    before = tree_digest(native)
+    t0 = time.perf_counter()
+    built = runtime.ensure_built(force=True)
+    seconds = time.perf_counter() - t0
+    unchanged = tree_digest(native) == before
+    print(f"phase 14: ensure_built(force=True) {built} in {seconds:.1f} s "
+          f"-> {runtime.library_path()}; native/ unchanged {unchanged}; "
+          f"runtime available {runtime.available()}")
+    assert built and runtime.library_path().is_file(), built
+    assert unchanged, "ensure_built changed native/"
+    assert runtime.available()
+    return out
+
+
+def example_contrasts(text):
+    """01's printed contrast of each candidate flow."""
+    import re
+
+    return {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"flow (\(.*?\)): contrast ([0-9.eE+-]+)", text)}
+
+
+def run_example(name, device, args):
+    """One example as a subprocess; its stdout and seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", EXAMPLE_RUNNER, os.path.join(EXAMPLES, name),
+         "--device", device, *args],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout + proc.stderr[-4000:], file=sys.stderr)
+    assert proc.returncode == 0, f"{name} exited {proc.returncode}"
+    return proc.stdout, seconds
+
+
+def run_examples(device):
+    """(e) of phase 14: the five port examples as subprocesses on the card
+    (``--device cuda``), each exiting 0 with its expected lines, every vote
+    launch of the example (and of its ranks) held against the plain vote
+    on its own arguments; 01's contrasts against 01 on the CPU; 02's
+    plume EPE below its zero-flow baseline; each example's vote launches,
+    read in its own process and ranks."""
+    import re
+
+    card = card_line()
+    out = {}
+    for name, args, lines, votes in PORT_EXAMPLES:
+        text, seconds = run_example(name, device, args)
+        missing = [line for line in lines if line not in text]
+        assert not missing, f"{name} did not print {missing}:\n{text}"
+        reports = {key: json.loads(line.split(" ", 1)[1])
+                   for line in text.splitlines()
+                   for key in ("votes", "rank-votes")
+                   if line.startswith(key + " ")}
+        mine, ranks = reports["votes"], reports["rank-votes"]
+        checked = [mine] + ranks
+        launches = sum(r["launches"] for r in checked)
+        rel_err = max(r["max_rel_err"] for r in checked)
+        shown = [line for line in text.splitlines()
+                 if not line.startswith(("votes ", "rank-votes "))]
+        print(f"phase 14: {name} --device {device} {' '.join(args)}: exit 0 "
+              f"in {seconds:.1f} s on {card} (each vote also voted plain on "
+              f"the CPU); vote launches {mine['launches']}"
+              + (f", in its ranks {[r['launches'] for r in ranks]}"
+                 if ranks else "")
+              + f", max relative error vs plain {rel_err:.3e}")
+        for line in shown:
+            print(f"  | {line}")
+        assert all(r["checked"] == r["launches"] for r in checked), checked
+        assert rel_err <= EXAMPLE_VOTE_LIMIT, (name, rel_err)
+        entry = dict(seconds=seconds, launches=launches,
+                     vote_rel_err=rel_err, every_kernel={
+                         k: sum(r["every_kernel"][k] for r in checked)
+                         for k in mine["every_kernel"]})
+        if ranks:
+            entry["launches_ranks"] = [r["launches"] for r in ranks]
+            assert all(r["launches"] > 0 for r in ranks), ranks
+        if votes is not None:
+            assert launches == votes, (name, launches)
+        if name.startswith("torch_01"):
+            card_c = example_contrasts(text)
+            cpu_text, cpu_s = run_example(name, "cpu", args)
+            cpu_c = example_contrasts(cpu_text)
+            assert len(card_c) == 3 and card_c.keys() == cpu_c.keys(), (
+                card_c, cpu_c)
+            rel = {k: abs(card_c[k] - cpu_c[k]) / abs(cpu_c[k])
+                   for k in cpu_c}
+            print(f"phase 14: torch_01's contrasts on the card {card_c} vs "
+                  f"--device cpu {cpu_c} ({cpu_s:.1f} s): max relative "
+                  f"difference {max(rel.values()):.3e}")
+            assert max(rel.values()) <= 1e-5, rel
+            entry["contrast_rel_err"] = max(rel.values())
+        if name.startswith("torch_02"):
+            m = re.search(r"EPE on the plume: ([0-9.]+) px \(zero-flow "
+                          r"baseline ([0-9.]+) px\)", text)
+            assert m, text
+            epe, zero = float(m.group(1)), float(m.group(2))
+            print(f"phase 14: torch_02 plume EPE {epe} px beside its "
+                  f"zero-flow baseline {zero} px")
+            assert epe < zero, "the plume EPE is not below zero flow's"
+            entry.update(plume_epe=epe, plume_zero_epe=zero)
+        out[name] = entry
+    return out
+
+
+def run_leftovers_and_examples(device, events):
+    """Phase 14: the JAX package's last public names in the port on the
+    card, then the five port examples."""
+    t0 = time.perf_counter()
+    out = check_leftovers(device, events)
+    out["examples"] = run_examples(device)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 14: {out['seconds']:.1f} s")
+    print(json.dumps({"leftovers_and_examples": out}))
+    return out
+
+
 def main():
     import torch
 
@@ -3712,6 +4130,15 @@ def main():
                                     wire_mesh["rank_vote_err"])
     for entry in entries[1:]:
         entry["launches_wire"] = entry["launches_mesh"] = 0
+    entries[0]["launches_serving_pipelined"] = serving["pyramid_pipelined"][
+        "vote_launches"]
+    leftovers = run_leftovers_and_examples("cuda", events)
+    for entry in entries:
+        entry["launches_examples"] = {
+            name: e["every_kernel"][entry["name"]]
+            for name, e in leftovers["examples"].items()}
+    entries[0]["examples_vote_rel_err"] = max(
+        e["vote_rel_err"] for e in leftovers["examples"].values())
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": entries}))

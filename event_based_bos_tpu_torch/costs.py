@@ -19,7 +19,7 @@ from .ops.gradients import central_gradient
 __all__ = ["diff_norm", "flow_norm", "flow_norm_pxy", "image_gradient",
            "total_variation", "charbonnier", "image_variance",
            "gradient_magnitude", "normalized_image_variance", "functions",
-           "hybrid_cost"]
+           "hybrid_cost", "required_keys"]
 
 
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:
@@ -165,6 +165,26 @@ functions: Dict[str, Callable[[dict], torch.Tensor]] = {
     "gradient_magnitude": gradient_magnitude,
     "normalized_image_variance": normalized_image_variance,
 }
+
+_REQUIRED_KEYS = {
+    "diff_norm": ["prediction", "measurement"],
+    "flow_norm": ["flow"],
+    "flow_norm_pxy": ["pxy"],
+    "image_gradient": ["flow", "omit_boundary"],
+    "total_variation": ["flow"],
+    "charbonnier": ["prediction", "measurement"],
+    "image_variance": ["iwe"],
+    "gradient_magnitude": ["iwe"],
+    "normalized_image_variance": ["orig_iwe", "iwe"],
+}
+
+
+def required_keys(cost_with_weight: dict) -> list:
+    """The argument keys the named terms read, in order (repeats kept)."""
+    keys = []
+    for name in cost_with_weight:
+        keys.extend(_REQUIRED_KEYS.get(name, []))
+    return keys
 
 
 def hybrid_cost(cost_with_weight: Dict[str, Union[float, str, tuple]],

@@ -20,7 +20,7 @@ import torch
 from ..device import resolve_device
 
 __all__ = ["sobel_kernels", "sobel_xy", "frame_gradients", "poisson_to_flow",
-           "central_gradient"]
+           "central_gradient", "sobel_divergence", "strain_variant"]
 
 _SOBEL_X = {
     3: [[-1.0, -2.0, -1.0], [0.0, 0.0, 0.0], [1.0, 2.0, 1.0]],
@@ -98,6 +98,14 @@ def poisson_to_flow(intensity: torch.Tensor, ksize: int = 3) -> torch.Tensor:
     return torch.stack([dx, dy], dim=-3) / 8.0
 
 
+def sobel_divergence(flow: torch.Tensor, ksize: int = 3) -> torch.Tensor:
+    """Divergence ``(du/dx + dv/dy) / 8`` of a flow ``[..., 2, H, W]``:
+    Sobel with the replicate border."""
+    dxx, _ = sobel_xy(flow[..., 0, :, :], ksize, "edge")
+    _, dyy = sobel_xy(flow[..., 1, :, :], ksize, "edge")
+    return (dxx + dyy) / 8.0
+
+
 def central_gradient(image: torch.Tensor, axis: int) -> torch.Tensor:
     """Second-order central differences, one-sided at the edges
     (``torch.gradient`` / ``np.gradient`` with unit spacing)."""
@@ -107,3 +115,11 @@ def central_gradient(image: torch.Tensor, axis: int) -> torch.Tensor:
     first = image.narrow(axis, 1, 1) - image.narrow(axis, 0, 1)
     last = image.narrow(axis, n - 1, 1) - image.narrow(axis, n - 2, 1)
     return torch.cat([first, interior, last], dim=axis)
+
+
+def strain_variant(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Strain magnitude variant of the flow components ``u``, ``v``:
+    Sobel/8 with the reflect-101 border."""
+    du_dx, du_dy = (g / 8.0 for g in sobel_xy(u, 3, "reflect"))
+    dv_dx, dv_dy = (g / 8.0 for g in sobel_xy(v, 3, "reflect"))
+    return du_dx**2 + dv_dy**2 + 0.5 * (du_dy + dv_dx) ** 2

@@ -15,7 +15,8 @@ ignored); the library name carries a hash of the source, the flags and the
 host name, so an edited source, or a checkout copied to another machine,
 is rebuilt.  Nothing is written into ``native/``.  Where the build fails,
 one warning is logged and every function takes its plain version;
-:func:`available` says which route runs.
+:func:`available` says which route runs.  :func:`ensure_built` builds
+ahead of first use, or again with ``force``.
 """
 
 from __future__ import annotations
@@ -35,10 +36,10 @@ import numpy as np
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["available", "library_path", "searchsorted", "searchsorted_plain",
-           "window_padded", "window_padded_plain", "baf_filter",
-           "baf_filter_plain", "hot_pixel_filter", "hot_pixel_filter_plain",
-           "decode_evt3", "decode_evt3_plain"]
+__all__ = ["available", "ensure_built", "library_path", "searchsorted",
+           "searchsorted_plain", "window_padded", "window_padded_plain",
+           "baf_filter", "baf_filter_plain", "hot_pixel_filter",
+           "hot_pixel_filter_plain", "decode_evt3", "decode_evt3_plain"]
 
 _ROOT = Path(__file__).resolve().parent.parent
 SOURCE = _ROOT / "native" / "ebt_runtime.cpp"
@@ -58,9 +59,9 @@ def library_path() -> Path:
     return BUILD_DIR / f"libebt_runtime_{h.hexdigest()[:16]}.so"
 
 
-def _build() -> Path:
+def _build(force: bool = False) -> Path:
     out = library_path()
-    if out.is_file():
+    if out.is_file() and not force:
         return out
     cxx = shutil.which("g++")
     if cxx is None:
@@ -77,15 +78,37 @@ def _build() -> Path:
     return out
 
 
+def ensure_built(force: bool = False) -> bool:
+    """Build the library under ``build/runtime/`` if it is missing (with
+    ``force``, again even where it exists, and after an earlier failure);
+    returns whether it is there.  A failure logs one warning and makes
+    every function take its plain version."""
+    global _failed
+    if force:
+        _failed = False
+    elif _failed:
+        return False
+    try:
+        _build(force)
+    except (OSError, RuntimeError) as e:
+        _failed = True
+        logger.warning("native runtime unavailable, using the numpy "
+                       "versions: %s", e)
+        return False
+    return True
+
+
 def _load() -> Optional[ctypes.CDLL]:
     """The loaded library, built on first use; None (after one warning)
     where it cannot be built."""
     global _lib, _failed
     if _lib is not None or _failed:
         return _lib
+    if not ensure_built():
+        return None
     try:
-        lib = ctypes.CDLL(str(_build()))
-    except (OSError, RuntimeError) as e:
+        lib = ctypes.CDLL(str(library_path()))
+    except OSError as e:
         _failed = True
         logger.warning("native runtime unavailable, using the numpy "
                        "versions: %s", e)

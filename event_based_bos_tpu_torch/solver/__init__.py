@@ -15,3 +15,12 @@ from .gml import GmlSpec, estimate_frame_gml  # noqa: F401
 from .patch import (PatchSpec, estimate_frame_dependent,  # noqa: F401
                     estimate_frame_patch)
 from .pyramid import PyramidSpec, estimate_frame  # noqa: F401
+
+#: The per-frame estimators by solver name: plain functions, called as
+#: they are for custom pipelines.
+functional = {
+    "generative_max_likelihood": estimate_frame_gml,
+    "patch_eklt": estimate_frame_patch,
+    "patch_eklt_dependent": estimate_frame_dependent,
+    "patch_eklt_pyramid2": estimate_frame,
+}

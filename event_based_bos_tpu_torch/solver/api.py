@@ -344,6 +344,18 @@ class SolverBase(WireUploadMixin):
     def set_previous_frame_best_estimation(self, previous_best):
         self.previous_frame_best_estimation = previous_best
 
+    def undistort_image(self, image: np.ndarray) -> np.ndarray:
+        """Undistort a frame with the calibration ``{"K", "D"}`` given to
+        the solver (cv2 on the host; ``orig_image_shape`` is passed as
+        cv2's image size, as the JAX package does)."""
+        import cv2
+
+        new_mtx, _ = cv2.getOptimalNewCameraMatrix(
+            self.calib_param["K"], self.calib_param["D"],
+            self.orig_image_shape, 1, self.orig_image_shape)
+        return cv2.undistort(image, self.calib_param["K"],
+                             self.calib_param["D"], None, new_mtx)
+
     # -- visualization ---------------------------------------------------------------
     def render_bundle(self, events, est_scaled, gt_flow, est_device=None,
                       est_scale=1.0, err_crop=None) -> dict:

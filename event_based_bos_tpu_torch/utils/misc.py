@@ -1,20 +1,29 @@
-"""Misc utilities: seeds, config key checks and the error-text reader.
+"""Misc utilities: seeds, config key checks, the error-text reader and
+the cProfile decorator.
 
-PyTorch port's copy of the part of the JAX package's ``utils/misc.py`` that
-the evaluation loop uses.  The JAX package's persistent compile cache has
-no counterpart: nothing here is compiled per program.
+PyTorch port's copy of the JAX package's ``utils/misc.py``.  The JAX
+package's persistent compile cache has no counterpart: nothing here is
+compiled per program.
 """
 
 from __future__ import annotations
 
 import ast
+import cProfile
+import functools
+import io
+import logging
+import pstats
 import random
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["fix_random_seed", "check_key_and_bool", "read_flow_error_text"]
+logger = logging.getLogger(__name__)
+
+__all__ = ["fix_random_seed", "check_key_and_bool", "read_flow_error_text",
+           "profile"]
 
 
 def fix_random_seed(seed: int = 46) -> None:
@@ -79,3 +88,35 @@ def read_flow_error_text(filename: str, abs_val: bool = False
             "n_data": int(len(metric)),
         }
     return arrays, stats
+
+
+def profile(output_file=None, sort_by="cumulative", lines_to_print=None,
+            strip_dirs=False):
+    """cProfile decorator: dumps the call's stats to ``output_file``
+    (default ``<function name>.prof``) and logs them at debug level.
+
+    It sees the host's Python only; for the card's kernels use
+    :func:`event_based_bos_tpu_torch.utils.tracing.trace`.
+    """
+
+    def inner(func):
+        @functools.wraps(func)
+        def wrapper(*args, **kwargs):
+            out = output_file or func.__name__ + ".prof"
+            pr = cProfile.Profile()
+            pr.enable()
+            try:
+                return func(*args, **kwargs)
+            finally:
+                pr.disable()
+                pr.dump_stats(out)
+                s = io.StringIO()
+                ps = pstats.Stats(pr, stream=s)
+                if strip_dirs:
+                    ps.strip_dirs()
+                ps.sort_stats(sort_by).print_stats(lines_to_print)
+                logger.debug(s.getvalue())
+
+        return wrapper
+
+    return inner

@@ -9,7 +9,8 @@ subprocess where ``import jax`` fails, and so do ``import cv2``, ``import
 yaml``, ``import PIL``, ``import matplotlib`` and ``import h5py``.  Entry
 points called without ``device=`` must raise here (no GPU) rather than run
 on the CPU.  The port builds its own native runtime and never loads the JAX
-package's.
+package's.  The port's examples (``examples/torch_0*.py``) are held to the
+same rules.
 """
 
 import pathlib
@@ -21,6 +22,7 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "event_based_bos_tpu_torch"
+EXAMPLES = sorted((REPO / "examples").glob("torch_0*.py"))
 
 
 def _port_modules():
@@ -44,8 +46,9 @@ def test_port_and_chip_smoke_import_without_jax():
         "    sys.modules[m] = None\n"
         "import importlib\n"
         "sys.path.insert(0, 'tools')\n"
+        "sys.path.insert(0, 'examples')\n"
         f"for m in {_port_modules()!r} + ['chip_smoke', 'torch_solve_probe',"
-        " 'stencil_ab']:"
+        f" 'stencil_ab'] + {[p.stem for p in EXAMPLES]!r}:"
         "\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'jax' and sys.modules[m]"
@@ -61,7 +64,7 @@ def test_port_and_chip_smoke_import_without_jax():
 def test_no_port_source_names_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu")) + [
         REPO / "chip_smoke.py", REPO / "tools" / "torch_solve_probe.py",
-        REPO / "tools" / "stencil_ab.py"]
+        REPO / "tools" / "stencil_ab.py"] + EXAMPLES
     offenders = [str(f) for f in files
                  if "event_based_bos_tpu." in f.read_text()
                  or "import jax" in f.read_text()]
@@ -173,6 +176,23 @@ def test_mesh_and_wire_are_covered_and_need_a_device():
                  lambda: dryrun_multichip(4)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+
+
+def test_examples_are_covered_and_need_a_device():
+    """The five port examples are among the modules the subprocess above
+    imports without JAX or cv2, and each one's ``main`` with its default
+    device (the GPU) raises here before any work."""
+    import runpy
+
+    torch = pytest.importorskip("torch")
+    assert [p.name[:8] for p in EXAMPLES] == [f"torch_0{i}" for i in
+                                              range(1, 6)]
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    for path in EXAMPLES:
+        main = runpy.run_path(str(path), run_name="example")["main"]
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main([])
 
 
 def test_chip_smoke_fails_without_a_gpu():
