@@ -210,7 +210,24 @@ failure:
    relative to the image's largest magnitude), 01's three contrasts
    within 1e-5 relative of the same example run with ``--device cpu``
    (the plain vote), 02's plume EPE below its zero-flow baseline; each
-   example's seconds with the card.
+   example's seconds with the card;
+15. the optimizer loops as replayed CUDA graphs (every first-order loop of
+   the phases above already ran as one): phase 4's frame through a kept
+   ``SolveProgram`` (captured at its first frame, replayed after) and
+   through ``graphs.eager_loops()``, the routes alternated, a warm-up and
+   three timed frames each: flows, every scale's loss and term histories
+   and best parameters bit-identical, EPE 0.1655 px, one vote launch a
+   frame; the same for the CMax cell (flows and loss histories
+   bit-identical), whose graph-route frame counts 260 launches of each
+   stencil kernel and whose ``torch.profiler`` trace holds 260 forward and
+   260 backward ``cmax_stencil_kernel`` events.  Each cell prints, beside
+   the card's name and power limit, each route's ms/frame (CUDA events,
+   median of the timed frames), kernels a step and the device's idle share
+   (the graph-route frame's trace), capture ms per scale and the graphs'
+   pool MB.  Then phase 6's serving config with ``prewarm`` (one capture
+   line, logged before the first frame; ``pred_flow`` and error texts byte
+   for byte phase 6's), and with ``warm_start`` and ``steady_n_iter`` with
+   and without ``prewarm`` (two capture lines each; the same bytes).
 
 Prints the whole run's seconds, a ``kernels`` JSON line, the
 ``nvidia-smi`` line, and last
@@ -242,6 +259,7 @@ DOT_MOTION = (2.0, -3.0)   # px/window: |dt·flow| <= 1.5 px, inside R = 2
 # the vote kernel and the stencil kernels were first checked gave them
 PYRAMID_EPE = "0.1655"
 DOT_MEDIANS = ("2.358", "-2.909")
+STEADY_ITERS = 200         # phase 15's warm frames' schedule (steady_n_iter)
 
 
 def make_workload(seed=0):
@@ -4052,6 +4070,349 @@ def run_leftovers_and_examples(device, events):
     return out
 
 
+def same_tree(a, b):
+    """Whether two nests of tensors (dicts, lists, tuples) are equal bit for
+    bit, the signs of zeros included."""
+    import torch
+
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_tree(x, y)
+                                        for x, y in zip(a, b))
+    if torch.is_tensor(a):
+        return (a.shape == b.shape and a.dtype == b.dtype
+                and torch.equal(a, b)
+                and torch.equal(torch.signbit(a), torch.signbit(b)))
+    return a == b
+
+
+class CaptureLog:
+    """Records each capture's ms and pool bytes
+    (``graphs.StepGraph._capture`` wrapped); :meth:`restore` unwraps."""
+
+    def __init__(self):
+        from event_based_bos_tpu_torch import graphs
+
+        self.captures = []
+        self._original = graphs.StepGraph._capture
+        original = self._original
+
+        def recorded(graph):
+            original(graph)
+            self.captures.append((graph.capture_ms, graph.pool_bytes))
+
+        graphs.StepGraph._capture = recorded
+
+    def restore(self):
+        from event_based_bos_tpu_torch import graphs
+
+        graphs.StepGraph._capture = self._original
+
+
+def profiled(fn):
+    """``fn()`` under ``torch.profiler`` (CPU and CUDA activity), between
+    two CUDA events; returns the CUDA events of the trace (kernels,
+    memsets, copies) as ``(name, us)`` and the span's ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+    return ([(ev.name, ev.time_range.elapsed_us()) for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA], s.elapsed_time(e))
+
+
+def alternated(routes, frames=4):
+    """Each route of ``routes`` (name → fn returning ``(flow, aux)``) run
+    ``frames`` times, the routes alternated, each frame between two CUDA
+    events; the first frame of each route is the warm-up.  Returns the
+    last ``(flow, aux)`` of each route and its timed frames' ms."""
+    import torch
+
+    out, ms = {}, {name: [] for name in routes}
+    for _ in range(frames):
+        for name, fn in routes.items():
+            torch.cuda.synchronize()
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            out[name] = fn()
+            e.record()
+            e.synchronize()
+            ms[name].append(s.elapsed_time(e))
+    return out, {name: t[1:] for name, t in ms.items()}
+
+
+def route_line(cell, ms, steps, trace, captures):
+    """The phase's report of one cell: ms/frame of each route, kernels a
+    step and the device's idle share (of the traced graph-route frame:
+    its CUDA events' summed time against its span), capture ms and pool
+    MB; returns them as a dict."""
+    cuda_events, traced_ms = trace
+    busy_ms = sum(us for _n, us in cuda_events) / 1e3
+    graph_ms = statistics.median(ms["graph"])
+    eager_ms = statistics.median(ms["eager"])
+    out = dict(graph_ms_per_frame=graph_ms, eager_ms_per_frame=eager_ms,
+               graph_frames_ms=ms["graph"], eager_frames_ms=ms["eager"],
+               kernels_per_step=len(cuda_events) / steps,
+               device_busy_ms=busy_ms, traced_frame_ms=traced_ms,
+               idle_share=1.0 - busy_ms / traced_ms,
+               capture_ms=[c for c, _b in captures],
+               pool_mb=sum(b for _c, b in captures) / 2**20)
+    card = card_line()
+    timed = {name: ", ".join(f"{t:.1f}" for t in ms[name]) for name in ms}
+    print(f"phase 15: {cell}: graph route {graph_ms:.1f} ms/frame (timed "
+          f"{timed['graph']}) beside eager {eager_ms:.1f} ms/frame "
+          f"({timed['eager']}); CUDA events, alternated, after a warm-up "
+          f"each; {card}")
+    print(f"phase 15: {cell}: {out['kernels_per_step']:.1f} kernels a step "
+          f"({len(cuda_events)} in a graph-route frame of {steps} steps); "
+          f"{card}")
+    print(f"phase 15: {cell}: device idle share {out['idle_share']:.4f} of a "
+          f"traced graph-route frame (busy {busy_ms:.1f} of {traced_ms:.1f} "
+          f"ms); {card}")
+    print(f"phase 15: {cell}: capture ms per scale "
+          f"{[round(c, 1) for c in out['capture_ms']]}; {card}")
+    print(f"phase 15: {cell}: graphs' pool {out['pool_mb']:.1f} MB "
+          f"({len(captures)} graphs); {card}")
+    return out
+
+
+def graph_pyramid(events, frame, gt_flow, device):
+    """(a) of phase 15: phase 4's frame through a kept solve program (the
+    graph route) and through ``eager_loops()``, alternated."""
+    import torch
+
+    from event_based_bos_tpu_torch import events_from_ndarray, kernels
+    from event_based_bos_tpu_torch.graphs import eager_loops
+    from event_based_bos_tpu_torch.solver import GenerativeSpec, PyramidSpec
+    from event_based_bos_tpu_torch.solver.generative import iwe_cache
+    from event_based_bos_tpu_torch.solver.pyramid import (SolveProgram,
+                                                          estimate_frame,
+                                                          roi_mask,
+                                                          scale_iterations)
+
+    dev = torch.device(device)
+    gen = GenerativeSpec(image_size=(H, W), iwe_sigma=2.0,
+                         weight_by_inverse_event_hist=True,
+                         optimize_warp=True, poisson_model=True)
+    spec = PyramidSpec(gen=gen, roi=ROI, coarsest_patch=64, finest_patch=8,
+                       n_iter=N_ITER)
+    steps = sum(scale_iterations(spec))
+    ev = events_from_ndarray(events, capacity=CAPACITY, device=dev)
+    frame_t = torch.as_tensor(frame, dtype=torch.float32, device=dev)
+    mask = torch.as_tensor(roi_mask(spec), device=dev)
+    program = SolveProgram(spec)
+
+    def solve(program=None):
+        return estimate_frame(None, frame_t, mask,
+                              torch.Generator(dev).manual_seed(0), spec,
+                              cache=iwe_cache(ev, gen), device=dev,
+                              program=program)
+
+    def eager():
+        with eager_loops():
+            return solve()
+
+    log = CaptureLog()
+    try:
+        out, ms = alternated({"graph": lambda: solve(program),
+                              "eager": eager})
+    finally:
+        log.restore()
+    (g_flow, g_aux), (e_flow, e_aux) = out["graph"], out["eager"]
+    keys = ("loss_history", "term_history", "params_per_scale")
+    same = {k: same_tree(g_aux[k], e_aux[k]) for k in keys}
+    same["flow"] = same_tree(g_flow, e_flow)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    trace = profiled(lambda: solve(program))
+    launches = dict(kernels.launches)
+    epe = accuracy_epe(g_flow.cpu().numpy(), gt_flow)
+    print(f"phase 15: pyramid, graph route vs eager_loops(): bit-identical "
+          f"{same} at {len(g_aux['loss_history'])} scales; graph-route EPE "
+          f"{epe:.4f} px ({epe!r}); launches of a graph-route frame "
+          f"{launches}")
+    result = route_line("pyramid", ms, steps, trace, log.captures)
+    assert len(log.captures) == spec.n_scales, log.captures
+    assert all(same.values()), f"graph and eager routes differ: {same}"
+    assert f"{epe:.4f}" == PYRAMID_EPE, f"EPE {epe!r} moved from {PYRAMID_EPE}"
+    assert launches == {"hat_vote_image": 1, "cmax_stencil_fwd": 0,
+                        "cmax_stencil_bwd": 0}, launches
+    result.update(epe=epe, launches=launches, bit_identical=same)
+    return result
+
+
+def graph_cmax(events, device):
+    """(b) of phase 15: the CMax cell's frame on both routes, alternated;
+    a profiler trace of a graph-route frame must hold each stencil kernel
+    once a step."""
+    import torch
+
+    from event_based_bos_tpu_torch import events_from_ndarray, kernels
+    from event_based_bos_tpu_torch.graphs import eager_loops
+    from event_based_bos_tpu_torch.solver.cmax import (estimate_frame_cmax,
+                                                       scale_iterations)
+
+    dev = torch.device(device)
+    spec = cmax_cell_spec()
+    steps = sum(scale_iterations(spec))
+    ev = events_from_ndarray(events, capacity=CAPACITY, device=dev)
+
+    def solve():
+        return estimate_frame_cmax(ev, None, None, spec, device=dev)
+
+    def eager():
+        with eager_loops():
+            return solve()
+
+    log = CaptureLog()
+    try:
+        out, ms = alternated({"graph": solve, "eager": eager})
+        n_captures = len(log.captures)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        trace = profiled(solve)
+        launches = dict(kernels.launches)
+    finally:
+        log.restore()
+    (g_flow, g_aux), (e_flow, e_aux) = out["graph"], out["eager"]
+    same = {"flow": same_tree(g_flow, e_flow),
+            "loss_history": same_tree(g_aux["loss_history"],
+                                      e_aux["loss_history"])}
+    fwd = sum("cmax_stencil_kernel" in n and "false" in n
+              for n, _us in trace[0])
+    bwd = sum("cmax_stencil_kernel" in n and "true" in n
+              for n, _us in trace[0])
+    print(f"phase 15: cmax, graph route vs eager_loops(): bit-identical "
+          f"{same} at {len(g_aux['loss_history'])} scales; launches of a "
+          f"graph-route frame {launches}; the profiler's trace of it holds "
+          f"{fwd} forward and {bwd} backward cmax_stencil_kernel events")
+    # each route frame captures every scale afresh (4 graph frames)
+    captures = log.captures[:spec.n_scales]
+    result = route_line("cmax", ms, steps, trace, captures)
+    assert n_captures == 4 * spec.n_scales, n_captures
+    assert all(same.values()), f"graph and eager routes differ: {same}"
+    assert launches == {"hat_vote_image": 1, "cmax_stencil_fwd": steps,
+                        "cmax_stencil_bwd": steps}, launches
+    assert fwd == bwd == steps == 260, (fwd, bwd, steps)
+    result.update(launches=launches, bit_identical=same,
+                  trace_stencil_events=[fwd, bwd])
+    return result
+
+
+def serving_prewarm(config, loader, device, gt):
+    """``drive_serving`` with the facades' log lines collected too: returns
+    the solver, the launches, the capture lines and the line index of the
+    first frame's dispatch."""
+    import logging
+
+    from event_based_bos_tpu_torch.solver import facades
+
+    lines = []
+    handler = logging.Handler()
+    handler.emit = lambda record: lines.append(record.getMessage())
+    log = logging.getLogger(facades.__name__)
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    solv = facades.PatchEkltPyramid2
+    estimate_async = solv.estimate_async
+
+    def marked(self, *args, **kwargs):
+        lines.append("frame dispatched")
+        return estimate_async(self, *args, **kwargs)
+
+    solv.estimate_async = marked
+    try:
+        out = drive_serving(config, loader, device, gt)
+    finally:
+        solv.estimate_async = estimate_async
+        log.removeHandler(handler)
+    captures = [i for i, m in enumerate(lines)
+                if m.startswith("Capturing the solve program")]
+    first = lines.index("frame dispatched")
+    return out[0], out[1], [lines[i] for i in captures], \
+        all(i < first for i in captures)
+
+
+def same_outputs(a, b, n):
+    """Whether two serving runs wrote the same ``pred_flow{i}.npy`` and
+    error texts, byte for byte."""
+    import numpy as np
+
+    flows = [np.load(os.path.join(a, f"pred_flow{i}.npy")).tobytes()
+             == np.load(os.path.join(b, f"pred_flow{i}.npy")).tobytes()
+             for i in range(n)]
+    texts = []
+    for name in SERVE_TEXTS:
+        with open(os.path.join(a, name)) as fa, \
+                open(os.path.join(b, name)) as fb:
+            texts.append(fa.read() == fb.read())
+    return flows + texts
+
+
+def graph_prewarm(loader, gt, device):
+    """(c) of phase 15: phase 6's serving config with ``prewarm`` (its
+    frames byte for byte phase 6's, one capture line, logged before the
+    first frame), then with ``warm_start`` and ``steady_n_iter`` with and
+    without ``prewarm`` (the same frames; two capture lines each)."""
+    config = serving_config("pyramid_prewarm")
+    config["prewarm"] = CAPACITY - 1024
+    solv, launches, lines, early = serving_prewarm(config, loader, device,
+                                                   gt)
+    check_serving_outputs(config, 3)
+    same = same_outputs(config["output_dir"],
+                        os.path.join(SERVE_DIR, "pyramid"), 3)
+    print(f"phase 15: phase 6's serving config with prewarm: capture lines "
+          f"{lines} (before the first frame {early}); pred_flow and error "
+          f"texts byte-identical to phase 6's {same}; vote launches "
+          f"{launches['hat_vote_image']}")
+    assert len(lines) == 1 and early, lines
+    assert all(same), "prewarm changed the served frames"
+    assert launches["hat_vote_image"] == 6, launches
+    out = {"capture_lines": len(lines), "same": same}
+    runs = {}
+    for warm in (False, True):
+        wconfig = serving_config(f"pyramid_steady_{int(warm)}")
+        wconfig["solver"].update(warm_start=True, steady_n_iter=STEADY_ITERS)
+        if warm:
+            wconfig["prewarm"] = CAPACITY - 1024
+        solv, launches, lines, early = serving_prewarm(wconfig, loader,
+                                                       device, gt)
+        check_serving_outputs(wconfig, 3)
+        runs[warm] = (wconfig["output_dir"], lines, early)
+        assert len(lines) == 2, lines
+        assert early == warm, (warm, lines)
+    same = same_outputs(runs[True][0], runs[False][0], 3)
+    print(f"phase 15: warm_start with steady_n_iter {STEADY_ITERS}: capture "
+          f"lines with prewarm {runs[True][1]} (all before the first frame "
+          f"{runs[True][2]}), without {runs[False][1]}; frames byte-identical "
+          f"with and without prewarm {same}")
+    assert all(same), "prewarm changed the warm-started frames"
+    out["steady_same"] = same
+    return out
+
+
+def run_graph_routes(events, frame, gt_flow, loader, gt, device):
+    """Phase 15: the captured optimizer loops against ``eager_loops()`` on
+    the pyramid and CMax cells, and ``prewarm`` on the serving loop."""
+    t0 = time.perf_counter()
+    out = {"pyramid": graph_pyramid(events, frame, gt_flow, device),
+           "cmax": graph_cmax(events, device),
+           "prewarm": graph_prewarm(loader, gt, device)}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 15: {out['seconds']:.1f} s")
+    print(json.dumps({"graph_routes": out}))
+    return out
+
+
 def main():
     import torch
 
@@ -4139,6 +4500,12 @@ def main():
             for name, e in leftovers["examples"].items()}
     entries[0]["examples_vote_rel_err"] = max(
         e["vote_rel_err"] for e in leftovers["examples"].values())
+    routes = run_graph_routes(events, frame, gt_flow, loader, gt, "cuda")
+    for entry in entries:
+        entry["launches_graph_pyramid"] = routes["pyramid"]["launches"][
+            entry["name"]]
+        entry["launches_graph_cmax"] = routes["cmax"]["launches"][
+            entry["name"]]
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": entries}))

@@ -97,7 +97,11 @@ def evaluate_per_frames(config, loader, solv, viz, device=None,
       queued.  The outputs equal the synchronous loop's bit for bit: the
       same solve, the same generator draws in frame order, frame-ordered
       finalization.
-    * ``prewarm`` builds and loads the kernels before the first frame.
+    * ``prewarm`` builds and loads the kernels before the first frame and
+      (the pyramid) captures the solve program of each schedule.  Without
+      it the first frame captures them; a capture runs on a stream of its
+      own in ``thread_local`` mode, so the prefetch thread's uploads may go
+      on meanwhile.
     * ``debug_nans`` (set by :func:`main`) raises ``FloatingPointError``
       when a frame's flow or loss history holds a NaN or an infinity.
     * ``mesh: {data: D, event: E}`` (in a world of D·E ranks, or 1×1 in

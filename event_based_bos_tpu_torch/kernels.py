@@ -11,8 +11,11 @@ with ``ctypes``.  The library name carries a hash of the sources and
 flags, so an edited kernel is rebuilt and an unchanged one is reused.
 
 The module holds the loaded library handle and :data:`launches`, the
-per-kernel launch counter that each wrapper bumps exactly where it launches
-its kernel.
+per-kernel launch counter that each wrapper bumps through
+:func:`launched` exactly where it launches its kernel.  A launch made while
+its stream captures a CUDA graph is not a launch: the capture records it
+(:func:`recording`), and :mod:`event_based_bos_tpu_torch.graphs` adds the
+recorded launches once per replay of the graph.
 """
 
 from __future__ import annotations
@@ -24,11 +27,12 @@ import shutil
 import subprocess
 import tempfile
 import time
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional
 
-__all__ = ["launches", "reset_launches", "build", "load", "library",
-           "NVCC_FLAGS"]
+__all__ = ["launches", "reset_launches", "launched", "recording", "build",
+           "load", "library", "NVCC_FLAGS"]
 
 SOURCE_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -41,10 +45,46 @@ launches: Dict[str, int] = {"hat_vote_image": 0, "cmax_stencil_fwd": 0,
 
 _lib: Optional[ctypes.CDLL] = None
 
+# the launches recorded by the capture under way (see :func:`recording`)
+_tally: Optional[Dict[str, int]] = None
+
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def launched(name: str) -> None:
+    """Count one launch of kernel ``name`` on the current stream.  While
+    that stream captures a CUDA graph inside :func:`recording`, the launch
+    goes to the capture's tally instead (the kernel runs at each replay,
+    not now)."""
+    if _tally is not None and _capturing():
+        _tally[name] = _tally.get(name, 0) + 1
+    else:
+        launches[name] += 1
+
+
+def _capturing() -> bool:
+    import torch
+
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
+
+
+@contextmanager
+def recording() -> Iterator[Dict[str, int]]:
+    """Collect the launches made on a capturing stream inside the block
+    (the autograd thread's backward launches too) into the dict it
+    yields, kernel name → launches a replay."""
+    global _tally
+    if _tally is not None:
+        raise RuntimeError("a capture is already recording launches")
+    _tally = {}
+    try:
+        yield _tally
+    finally:
+        _tally = None
 
 
 def _nvcc() -> str:

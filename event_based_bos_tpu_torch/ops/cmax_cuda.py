@@ -167,7 +167,7 @@ def cmax_stencil_fwd(hists: torch.Tensor, flow: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"cmax_stencil forward kernel launch failed "
                            f"(cudaError {err})")
-    kernels.launches["cmax_stencil_fwd"] += 1
+    kernels.launched("cmax_stencil_fwd")
     return out
 
 
@@ -198,7 +198,7 @@ def cmax_stencil_bwd(hists: torch.Tensor, flow: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"cmax_stencil backward kernel launch failed "
                            f"(cudaError {err})")
-    kernels.launches["cmax_stencil_bwd"] += 1
+    kernels.launched("cmax_stencil_bwd")
     return dflow
 
 

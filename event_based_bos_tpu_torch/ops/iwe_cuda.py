@@ -233,7 +233,7 @@ def hat_vote(x: torch.Tensor, y: torch.Tensor,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"hat_vote kernel launch failed (error {err})")
-    kernels.launches["hat_vote_image"] += 1
+    kernels.launched("hat_vote_image")
     return _shaped(out, w, 2 if polarity_planes is not None else planes)
 
 

@@ -3,15 +3,17 @@
 PyTorch counterpart of the JAX package's ``optim.py`` (``lax.scan`` loops
 over optax there):
 
-  * :func:`run_first_order` — the torch-optimizer names of the reference,
-    each written out as optax 0.2.6 computes it, with optax's staircase
-    ``exponential_decay`` schedule and best-iterate tracking.  The loop is
-    a Python loop of device work with **no host synchronisation per step**:
-    the loss history, the best loss, its step and the best iterate stay in
-    device tensors.  An objective that returns a vector of losses is a
-    batch of independent problems (one per leading row of ``x``): the
-    gradient of their sum is each row's own gradient, and the best iterate
-    is tracked per row.
+  * :func:`run_first_order` (:class:`FirstOrderLoop`) — the torch-optimizer
+    names of the reference, each written out as optax 0.2.6 computes it,
+    with optax's staircase ``exponential_decay`` schedule and best-iterate
+    tracking.  The loop is one step function over state held in device
+    tensors, with **no host synchronisation**: on the card it is captured
+    once as a CUDA graph and replayed (:mod:`.graphs`, the counterpart of
+    the JAX package's jitted ``lax.scan``), on the CPU it runs in a Python
+    loop.  An objective that returns a vector of losses is a batch of
+    independent problems (one per leading row of ``x``): the gradient of
+    their sum is each row's own gradient, and the best iterate is tracked
+    per row.
   * :func:`run_scipy_method` — the scipy names, per family:
     quasi-Newton → :func:`run_lbfgs` (optax's L-BFGS with its zoom line
     search), derivative-free → :func:`run_nelder_mead` (a branchless
@@ -22,25 +24,28 @@ over optax there):
     program (the sequential TPE study is :mod:`.tpe`).
 
 The per-step scalars of the first-order methods depend only on the step
-index, so they are Python numbers and cost no device traffic.  The zoom
-line search's loop depends on the data: its scalars live on the host in
-float64 and each of its function evaluations is one host read
-(``OptResult.host_reads`` counts them).
+index: they are tabulated once per loop on the device and read by the step
+from its counter.  The zoom line search's loop depends on the data: its
+scalars live on the host in float64 and each of its function evaluations
+is one host read (``OptResult.host_reads`` counts them).
 """
 
 from __future__ import annotations
 
 import logging
 import math
+from types import SimpleNamespace
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from . import graphs
+
 __all__ = ["OptResult", "Adam", "AdamW", "NAdam", "Adamax", "RAdam",
            "Adagrad", "Adadelta", "RMSprop", "SGD", "make_optimizer",
-           "run_first_order", "run_lbfgs", "run_nelder_mead", "run_newton_cg",
-           "run_scipy_method", "run_sampler", "FIRST_ORDER_METHODS",
+           "FirstOrderLoop", "run_first_order", "run_lbfgs",
+           "run_nelder_mead", "run_newton_cg", "run_scipy_method", "run_sampler", "FIRST_ORDER_METHODS",
            "QUASI_NEWTON_METHODS", "DERIVATIVE_FREE_METHODS",
            "HESSIAN_METHODS", "SCIPY_METHODS", "SAMPLER_METHODS"]
 
@@ -60,10 +65,19 @@ class OptResult(Dict[str, Any]):
 class Adam:
     """optax ``adam(exponential_decay(lr, lr_step, lr_decay, staircase))``.
 
-    ``lr`` may be a Python number or a 0-dim tensor.  Subclasses replace
-    :meth:`init` and :meth:`direction`; every method steps
-    ``x ← x − lr(count) · direction``.
+    ``lr`` may be a Python number or a 0-dim tensor.  Every method steps
+    ``x ← x − lr(count) · direction``.  The scalars of a step (the learning
+    rate and the family's bias corrections) depend only on its index
+    ``count``: :meth:`step_table` tabulates them for a whole loop on the
+    device, row ``count`` = ``[−lr(count), *scalars(count)]``, and
+    :meth:`step` reads them from that row, so that one step function (and
+    one captured graph of it) serves every index.  Subclasses replace
+    :meth:`init`, :meth:`scalars` and :meth:`direction`, and list in
+    ``divisors`` the scalars that the moments are divided by.
     """
+
+    #: indices of :meth:`scalars` that divide (see :meth:`step_table`)
+    divisors: Tuple[int, ...] = (0, 1)
 
     def __init__(self, lr, lr_step: int, lr_decay: float, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8):
@@ -84,6 +98,41 @@ class Adam:
             lr = lr * np.power(np.float32(self.lr_decay), np.float32(p))
         return float(lr)
 
+    def scalars(self, count: int) -> Tuple[float, ...]:
+        """The family's scalars of step ``count`` besides the learning
+        rate: Adam's bias corrections ``1 − b1^c`` and ``1 − b2^c``, c =
+        count + 1."""
+        c = count + 1
+        return (1 - self.b1 ** c, 1 - self.b2 ** c)
+
+    def step_table(self, n_iter: int, dtype: torch.dtype,
+                   device) -> torch.Tensor:
+        """``[n_iter, 1 + k]`` in ``dtype`` on ``device``: row ``count`` is
+        ``−lr(count)`` and :meth:`scalars` of ``count``, each rounded to
+        ``dtype``.  A divisor ``s`` is held as ``1 / s`` (in float64,
+        then rounded) and multiplies: the division of a tensor by a Python
+        number as PyTorch's CUDA kernels compute it (and the port's loop
+        did on the card before its scalars moved to the device), within
+        an ulp of optax's division."""
+        k = len(self.scalars(0))
+        rows = np.asarray([self.scalars(c) for c in range(n_iter)],
+                          np.float64).reshape(n_iter, k)
+        cols = list(self.divisors)
+        rows[:, cols] = 1.0 / rows[:, cols]
+        rows = torch.as_tensor(rows).to(dtype)
+        if torch.is_tensor(self.lr):
+            factors = [1.0 if c <= 0 else
+                       self.lr_decay ** math.floor(c / self.lr_step)
+                       for c in range(n_iter)]
+            lr = self.lr.detach() * torch.as_tensor(
+                factors, dtype=self.lr.dtype).to(self.lr.device)
+            neg_lr = (-lr).to(device=device, dtype=dtype)
+        else:
+            neg_lr = torch.as_tensor(
+                [-self.learning_rate(c) for c in range(n_iter)],
+                dtype=torch.float64).to(device=device, dtype=dtype)
+        return torch.cat([neg_lr[:, None], rows.to(device)], dim=1)
+
     def init(self, x: torch.Tensor):
         return {"mu": torch.zeros_like(x), "nu": torch.zeros_like(x)}
 
@@ -94,21 +143,21 @@ class Adam:
         state["mu"], state["nu"] = mu, nu
         return mu, nu
 
-    def direction(self, x, grad, state, count: int) -> torch.Tensor:
+    def direction(self, x, grad, state, s) -> torch.Tensor:
         """The update before the learning rate (optax's chain up to
-        ``scale_by_learning_rate``); updates ``state`` in place."""
+        ``scale_by_learning_rate``), with ``s`` the step's table entries
+        (0-dim tensors: the :meth:`scalars`, divisors as reciprocals);
+        rebinds ``state``'s entries to the new state."""
         mu, nu = self._moments(grad, state)
-        c = count + 1
-        mu_hat = mu / (1 - self.b1 ** c)
-        nu_hat = nu / (1 - self.b2 ** c)
-        return mu_hat / (torch.sqrt(nu_hat) + self.eps)
+        inv_bc1, inv_bc2 = s
+        return (mu * inv_bc1) / (torch.sqrt(nu * inv_bc2) + self.eps)
 
     def step(self, x: torch.Tensor, grad: torch.Tensor, state: dict,
-             count: int) -> torch.Tensor:
-        """One update from step ``count`` (0-based); returns the new iterate
-        and updates ``state`` in place."""
-        return x + (-self.learning_rate(count)) * self.direction(
-            x, grad, state, count)
+             row: torch.Tensor) -> torch.Tensor:
+        """One update from the step's table row ``row`` (see
+        :meth:`step_table`); returns the new iterate and rebinds ``state``'s
+        entries to the new state."""
+        return x + row[0] * self.direction(x, grad, state, row[1:])
 
 
 class AdamW(Adam):
@@ -116,68 +165,90 @@ class AdamW(Adam):
 
     weight_decay = 1e-4
 
-    def direction(self, x, grad, state, count):
-        return super().direction(x, grad, state, count) + \
-            self.weight_decay * x
+    def direction(self, x, grad, state, s):
+        return super().direction(x, grad, state, s) + self.weight_decay * x
 
 
 class NAdam(Adam):
     """optax ``nadam`` (Adam with Nesterov momentum)."""
 
-    def direction(self, x, grad, state, count):
-        mu, nu = self._moments(grad, state)
+    divisors = (0, 1, 2)
+
+    def scalars(self, count):
         c = count + 1
+        return (1 - self.b1 ** (c + 1), 1 - self.b1 ** c, 1 - self.b2 ** c)
+
+    def direction(self, x, grad, state, s):
+        mu, nu = self._moments(grad, state)
+        inv_bc1_next, inv_bc1, inv_bc2 = s
         b1 = self.b1
-        mu_hat = (b1 * (mu / (1 - b1 ** (c + 1)))
-                  + (1 - b1) * (grad / (1 - b1 ** c)))
-        nu_hat = nu / (1 - self.b2 ** c)
-        return mu_hat / (torch.sqrt(nu_hat) + self.eps)
+        mu_hat = b1 * (mu * inv_bc1_next) + (1 - b1) * (grad * inv_bc1)
+        return mu_hat / (torch.sqrt(nu * inv_bc2) + self.eps)
 
 
 class Adamax(Adam):
     """optax ``adamax``: the infinity-norm moment ``max(|g| + eps, b2·ν)``,
     no bias correction of ν."""
 
-    def direction(self, x, grad, state, count):
+    divisors = (0,)
+
+    def scalars(self, count):
+        return (1 - self.b1 ** (count + 1),)
+
+    def direction(self, x, grad, state, s):
         mu = (1 - self.b1) * grad + self.b1 * state["mu"]
         nu = torch.maximum(torch.abs(grad) + self.eps,
                            self.b2 * state["nu"])
         state["mu"], state["nu"] = mu, nu
-        return (mu / (1 - self.b1 ** (count + 1))) / nu
+        return (mu * s[0]) / nu
 
 
 class RAdam(Adam):
     """optax ``radam`` (threshold 5): the rectified update once the
-    variance is tractable, the bias-corrected momentum before."""
+    variance is tractable, the bias-corrected momentum before.  Which of
+    the two a step takes depends only on its index: a flag of the step
+    table selects it on the device."""
 
     threshold = 5.0
 
-    def direction(self, x, grad, state, count):
-        mu, nu = self._moments(grad, state)
+    def scalars(self, count):
         c = count + 1
         b2t = self.b2 ** c
         ro_inf = 2.0 / (1.0 - self.b2) - 1.0
         ro = ro_inf - 2 * c * b2t / (1 - b2t)
-        mu_hat = mu / (1 - self.b1 ** c)
         if ro < self.threshold:
-            return mu_hat
-        r = math.sqrt((ro - 4.0) * (ro - 2.0) * ro_inf
-                      / ((ro_inf - 4.0) * (ro_inf - 2.0) * ro))
-        nu_hat = nu / (1 - b2t)
-        return r * mu_hat / (torch.sqrt(nu_hat) + self.eps)
+            r, rectified = 0.0, 0.0
+        else:
+            r = math.sqrt((ro - 4.0) * (ro - 2.0) * ro_inf
+                          / ((ro_inf - 4.0) * (ro_inf - 2.0) * ro))
+            rectified = 1.0
+        return (1 - self.b1 ** c, 1 - b2t, r, rectified)
+
+    def direction(self, x, grad, state, s):
+        mu, nu = self._moments(grad, state)
+        inv_bc1, inv_bc2, r, rectified = s
+        mu_hat = mu * inv_bc1
+        return torch.where(rectified != 0,
+                           r * mu_hat / (torch.sqrt(nu * inv_bc2) + self.eps),
+                           mu_hat)
 
 
 class Adagrad(Adam):
     """optax ``adagrad``: the sum of squares starts at 0.1, eps 1e-7 inside
     the square root."""
 
+    divisors = ()
+
+    def scalars(self, count):
+        return ()
+
     def init(self, x):
         return {"sum_sq": torch.full_like(x, 0.1)}
 
-    def direction(self, x, grad, state, count):
-        s = grad * grad + state["sum_sq"]
-        state["sum_sq"] = s
-        return torch.where(s > 0, torch.rsqrt(s + 1e-7), 0.0) * grad
+    def direction(self, x, grad, state, s):
+        sq = grad * grad + state["sum_sq"]
+        state["sum_sq"] = sq
+        return torch.where(sq > 0, torch.rsqrt(sq + 1e-7), 0.0) * grad
 
 
 class Adadelta(Adam):
@@ -185,10 +256,15 @@ class Adadelta(Adam):
 
     rho, delta_eps = 0.9, 1e-6
 
+    divisors = ()
+
+    def scalars(self, count):
+        return ()
+
     def init(self, x):
         return {"e_g": torch.zeros_like(x), "e_x": torch.zeros_like(x)}
 
-    def direction(self, x, grad, state, count):
+    def direction(self, x, grad, state, s):
         rho, eps = self.rho, self.delta_eps
         e_g = (1 - rho) * (grad * grad) + rho * state["e_g"]
         u = (torch.sqrt(state["e_x"] + eps) / torch.sqrt(e_g + eps)) * grad
@@ -201,10 +277,15 @@ class RMSprop(Adam):
     """optax ``rmsprop`` (decay 0.9, eps 1e-8 inside the square root, no
     momentum)."""
 
+    divisors = ()
+
+    def scalars(self, count):
+        return ()
+
     def init(self, x):
         return {"nu": torch.zeros_like(x)}
 
-    def direction(self, x, grad, state, count):
+    def direction(self, x, grad, state, s):
         nu = (1 - 0.9) * (grad * grad) + 0.9 * state["nu"]
         state["nu"] = nu
         return torch.rsqrt(nu + 1e-8) * grad
@@ -213,10 +294,15 @@ class RMSprop(Adam):
 class SGD(Adam):
     """optax ``sgd`` (no momentum)."""
 
+    divisors = ()
+
+    def scalars(self, count):
+        return ()
+
     def init(self, x):
         return {}
 
-    def direction(self, x, grad, state, count):
+    def direction(self, x, grad, state, s):
         return grad
 
 
@@ -257,6 +343,187 @@ def _rows(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return mask.reshape(mask.shape + (1,) * (x.dim() - mask.dim()))
 
 
+class FirstOrderLoop:
+    """A first-order solve of ``objective``: its loop state, its step and
+    its route, reusable for further solves of the same shapes.
+
+    The state lives in tensors allocated once, before the first update:
+    the iterate ``x``, the optimizer state, the best iterate, loss and
+    step, the loss and per-term histories, the ``record_every`` buffer,
+    the step table (:meth:`Adam.step_table`) and a device step counter.
+    One step (:meth:`_step`) evaluates the objective and its gradient at
+    ``x`` and updates all of it in place, reading its index from the
+    counter, so the same step runs at every index: on the card as a
+    replayed CUDA graph (:class:`~event_based_bos_tpu_torch.graphs.StepGraph`;
+    op by op inside :func:`~event_based_bos_tpu_torch.graphs.eager_loops`),
+    on the CPU in a Python loop.  The first solve's first evaluation, at ``x0``, gives the
+    loss's shape and the per-term names that the histories need.
+
+    :meth:`run` returns copies of the outputs, so a later run (which
+    overwrites the state) leaves them as they are.  The objective must read
+    its constants from tensors that stay where they are between runs: a
+    captured step reads the same addresses at every replay.
+    """
+
+    def __init__(self, objective: Callable, n_iter: int,
+                 method: str = "Adam", lr=0.05, lr_decay: float = 0.1,
+                 lr_step: Optional[int] = None, track_best: bool = True,
+                 has_aux: bool = False,
+                 bounds: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 record_every: int = 0):
+        self.objective = objective
+        self.n_iter = n_iter
+        self.opt = make_optimizer(method, lr,
+                                  n_iter if lr_step is None else lr_step,
+                                  lr_decay)
+        self.track_best = track_best
+        self.has_aux = has_aux
+        self.bounds = bounds
+        self.record_every = record_every
+        self.graph: Optional[graphs.StepGraph] = None
+        self._c: Optional[SimpleNamespace] = None
+
+    # -- the step ------------------------------------------------------------
+    def _evaluate(self, x: torch.Tensor):
+        xg = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            out = self.objective(xg)
+            loss, aux = out if self.has_aux else (out, None)
+            (grad,) = torch.autograd.grad(
+                loss if loss.dim() == 0 else loss.sum(), xg)
+        return loss.detach(), aux, grad
+
+    def _update(self, loss, aux, grad) -> None:
+        c = self._c
+        idx = c.count
+        c.history.index_copy_(0, idx, loss.to(c.history.dtype)[None])
+        if c.aux_history is not None:
+            for k, h in c.aux_history.items():
+                h.index_copy_(0, idx, aux[k].detach().to(h.dtype).reshape(1))
+        better = loss < c.best_loss
+        if self.track_best:
+            c.best_x.copy_(torch.where(_rows(better, c.x), c.x, c.best_x))
+        c.best_it.copy_(torch.where(better, idx.to(torch.int32)[0],
+                                    c.best_it))
+        c.best_loss.copy_(torch.minimum(loss, c.best_loss))
+        if self.record_every > 0:
+            # every k-th iterate, by a select on the device (as JAX's scan)
+            slot = torch.div(idx, self.record_every, rounding_mode="floor")
+            keep = (idx % self.record_every == 0)[0]
+            kept = c.params_history.index_select(0, slot)[0]
+            c.params_history.index_copy_(
+                0, slot, torch.where(keep, c.x, kept)[None])
+        row = c.table.index_select(0, idx)[0]
+        state = dict(c.state)
+        x_new = self.opt.step(c.x, grad, state, row)
+        if self.bounds is not None:
+            x_new = torch.clamp(x_new, self.bounds[0], self.bounds[1])
+        for k, v in state.items():
+            c.state[k].copy_(v)
+        c.x.copy_(x_new)
+        c.count.add_(1)
+
+    def _step(self) -> None:
+        self._update(*self._evaluate(self._c.x))
+
+    # -- state ---------------------------------------------------------------
+    def _allocate(self, x: torch.Tensor, loss: torch.Tensor, aux) -> None:
+        dev, dt = x.device, x.dtype
+        n = self.n_iter
+        n_rec = -(-n // self.record_every) if self.record_every > 0 else 0
+        self._c = SimpleNamespace(
+            x=x,
+            state=self.opt.init(x),
+            best_x=x.clone() if self.track_best else None,
+            best_loss=torch.full(loss.shape, math.inf, device=dev,
+                                 dtype=torch.promote_types(loss.dtype, dt)),
+            best_it=torch.zeros(loss.shape, dtype=torch.int32, device=dev),
+            history=torch.empty((n,) + tuple(loss.shape), dtype=dt,
+                                device=dev),
+            aux_history=(None if aux is None else
+                         {k: torch.empty((n,), dtype=v.dtype, device=dev)
+                          for k, v in aux.items()}),
+            params_history=torch.zeros((n_rec,) + tuple(x.shape), dtype=dt,
+                                       device=dev),
+            table=self.opt.step_table(n, dt, dev),
+            count=torch.zeros((1,), dtype=torch.int64, device=dev))
+
+    def _reset(self, x0: torch.Tensor) -> None:
+        c = self._c
+        if (x0.shape != c.x.shape or x0.dtype != c.x.dtype
+                or x0.device != c.x.device):
+            raise ValueError(
+                f"this loop solves for a {tuple(c.x.shape)} {c.x.dtype} "
+                f"iterate on {c.x.device}, got {tuple(x0.shape)} "
+                f"{x0.dtype} on {x0.device}")
+        c.x.copy_(x0)
+        for k, v in self.opt.init(c.x).items():
+            c.state[k].copy_(v)
+        if self.track_best:
+            c.best_x.copy_(x0)
+        c.best_loss.fill_(math.inf)
+        c.best_it.zero_()
+        c.params_history.zero_()
+        c.count.zero_()
+
+    def set_learning_rate(self, lr) -> None:
+        """Solve with learning rate ``lr`` from the next run on (the step
+        table is rewritten in place)."""
+        self.opt.lr = lr
+        if self._c is not None:
+            self._c.table.copy_(self.opt.step_table(
+                self.n_iter, self._c.table.dtype, self._c.table.device))
+
+    # -- the solve -----------------------------------------------------------
+    def run(self, x0: torch.Tensor) -> OptResult:
+        """``n_iter`` steps from ``x0``; returns copies of the outputs (see
+        :func:`run_first_order`)."""
+        if self.n_iter <= 0:
+            return self._empty(x0)
+        if self._c is None:
+            x = x0.detach().clone()
+            loss, aux, grad = self._evaluate(x)
+            self._allocate(x, loss, aux)
+            self._update(loss, aux, grad)
+            remaining = self.n_iter - 1
+        else:
+            self._reset(x0.detach())
+            remaining = self.n_iter
+        dev = self._c.x.device
+        if graphs.graph_route(dev):
+            if self.graph is None:
+                self.graph = graphs.StepGraph(self._step, dev)
+            self.graph.run(remaining)
+        else:
+            for _ in range(remaining):
+                self._step()
+        return self._result()
+
+    def _result(self) -> OptResult:
+        c = self._c
+        param = c.best_x if self.track_best else c.x
+        return OptResult(
+            param=param.clone(), loss=c.best_loss.clone(),
+            best_iter=c.best_it.clone(), history=c.history.clone(),
+            aux_history=(None if c.aux_history is None else
+                         {k: v.clone() for k, v in c.aux_history.items()}),
+            last_param=c.x.clone(),
+            params_history=(c.params_history.clone()
+                            if self.record_every > 0 else None))
+
+    def _empty(self, x0: torch.Tensor) -> OptResult:
+        dev, dt = x0.device, x0.dtype
+        x = x0.detach().clone()
+        return OptResult(
+            param=x, loss=torch.full((), math.inf, dtype=dt, device=dev),
+            best_iter=torch.zeros((), dtype=torch.int32, device=dev),
+            history=torch.empty((0,), dtype=dt, device=dev),
+            aux_history=None, last_param=x,
+            params_history=(torch.zeros((0,) + tuple(x0.shape), dtype=dt,
+                                        device=dev)
+                            if self.record_every > 0 else None))
+
+
 def run_first_order(objective: Callable, x0: torch.Tensor, n_iter: int,
                     method: str = "Adam", lr=0.05, lr_decay: float = 0.1,
                     lr_step: Optional[int] = None, track_best: bool = True,
@@ -273,59 +540,18 @@ def run_first_order(objective: Callable, x0: torch.Tensor, n_iter: int,
     k-th iterate as ``params_history``.  A loss of shape ``[n]`` makes the
     rows of ``x`` independent problems: the history is ``[n_iter, n]`` and
     the best loss, step and iterate are per row.
-    """
-    lr_step = n_iter if lr_step is None else lr_step
-    opt = make_optimizer(method, lr, lr_step, lr_decay)
-    dev, dt = x0.device, x0.dtype
-    x = x0.detach().clone()
-    state = opt.init(x)
-    best_x = x
-    best_loss = best_it = history = None
-    aux_history: Optional[Dict[str, torch.Tensor]] = None
-    n_rec = -(-n_iter // record_every) if record_every > 0 else 0
-    buf = torch.zeros((n_rec,) + tuple(x0.shape), dtype=dt, device=dev)
-    steps = torch.arange(n_iter, dtype=torch.int32, device=dev)
 
-    for it in range(n_iter):
-        xg = x.detach().requires_grad_(True)
-        with torch.enable_grad():
-            out = objective(xg)
-            loss, aux = out if has_aux else (out, None)
-            (grad,) = torch.autograd.grad(
-                loss if loss.dim() == 0 else loss.sum(), xg)
-        loss = loss.detach()
-        if history is None:
-            history = torch.empty((n_iter,) + tuple(loss.shape), dtype=dt,
-                                  device=dev)
-            best_loss = torch.full(loss.shape, math.inf, dtype=dt,
-                                   device=dev)
-            best_it = torch.zeros(loss.shape, dtype=torch.int32, device=dev)
-        history[it] = loss
-        if aux is not None:
-            if aux_history is None:
-                aux_history = {k: torch.empty((n_iter,), dtype=v.dtype,
-                                              device=dev)
-                               for k, v in aux.items()}
-            for k, v in aux.items():
-                aux_history[k][it] = v.detach()
-        better = loss < best_loss
-        if track_best:
-            best_x = torch.where(_rows(better, x), x, best_x)
-        best_it = torch.where(better, steps[it], best_it)
-        best_loss = torch.minimum(loss, best_loss)
-        if record_every > 0 and it % record_every == 0:
-            buf[it // record_every] = x
-        x = opt.step(x, grad, state, it)
-        if bounds is not None:
-            x = torch.clamp(x, bounds[0], bounds[1])
-    if history is None:
-        history = torch.empty((0,), dtype=dt, device=dev)
-        best_loss = torch.full((), math.inf, dtype=dt, device=dev)
-        best_it = torch.zeros((), dtype=torch.int32, device=dev)
-    param = best_x if track_best else x
-    return OptResult(param=param, loss=best_loss, best_iter=best_it,
-                     history=history, aux_history=aux_history, last_param=x,
-                     params_history=buf if record_every > 0 else None)
+    One :class:`FirstOrderLoop`, run once: on the card its step is captured
+    and replayed, on the CPU it runs in a Python loop.
+    """
+    loop = FirstOrderLoop(objective, n_iter, method, lr, lr_decay, lr_step,
+                          track_best, has_aux, bounds, record_every)
+    try:
+        return loop.run(x0)
+    finally:
+        # the loop and its graph refer to each other: drop the graph (and
+        # its memory pool) now, not when the collector next runs
+        loop.graph = None
 
 
 # ---------------------------------------------------------------------------

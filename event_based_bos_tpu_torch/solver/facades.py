@@ -18,11 +18,12 @@ import torch
 
 from .api import EstimationHandle, SolverBase, fetch_later
 from .cmax import CmaxSpec, estimate_frame_cmax
-from .generative import GenerativeSpec, iwe_cache
+from .generative import (GenerativeSpec, initialize_params, iwe_cache,
+                         iwe_cache_from_votes)
 from .gml import GmlSpec, estimate_frame_gml, make_host_tpe_solver
 from .patch import PatchSpec, estimate_frame_dependent, estimate_frame_patch
-from .pyramid import (PyramidSpec, estimate_frame, roi_mask,
-                      update_coarse_from_fine)
+from .pyramid import (PyramidSpec, SolveProgram, estimate_frame,
+                      pyramid_grids, roi_mask, update_coarse_from_fine)
 
 logger = logging.getLogger(__name__)
 
@@ -221,6 +222,13 @@ class PatchEkltPyramid2(SolverBase):
     ``handle.device_flow`` is then the cast full-frame flow.  The solve
     reads events only through the polarity histogram, so an array uploads
     without timestamps (the t-less wire, 5 B/event).
+
+    The facade keeps one :class:`~.pyramid.SolveProgram` per event capacity
+    and schedule (the full ``n_iter``, and ``steady_n_iter`` for the warm
+    frames when it is set), as the JAX package keeps one jitted solve per
+    pair: on the card its first frame captures each scale's step and later
+    frames replay them.  :meth:`prewarm` captures them ahead of the first
+    frame.
     """
 
     SUPPORTS_FLOW_FETCH_DTYPE = True
@@ -295,6 +303,47 @@ class PatchEkltPyramid2(SolverBase):
         h, w = self.gen.image_size
         self._flow_fetch_box = ((x0, x1, y0, y1)
                                 if (x1 - x0) * (y1 - y0) < h * w else None)
+        self._programs = {}
+
+    def _program(self, capacity: int, steady: bool = False) -> SolveProgram:
+        """The solve program of event capacity ``capacity`` for the full
+        schedule or (``steady``) the warm frames' ``steady_n_iter``."""
+        key = (capacity, steady)
+        if key not in self._programs:
+            spec = self.spec_steady if steady else self.spec
+            logger.info(
+                "Capturing the solve program for event capacity %d (%d "
+                "iterations) — its first frame includes the capture; later "
+                "frames replay it.", capacity, spec.n_iter)
+            self._programs[key] = SolveProgram(spec)
+        return self._programs[key]
+
+    def prewarm(self, capacity: int) -> None:
+        """Build the kernels and capture the solve program of ``capacity``
+        ahead of the first frame, as the JAX package compiles and
+        dispatches its solve on an all-invalid dummy batch: one solve on
+        that batch's (all-zero) IWE cache from a start drawn from a
+        generator of its own, so the solver's generator, and every real
+        frame's output, are unchanged.  With ``steady_n_iter`` the warm
+        frames' program is captured too, from the dummy solve's feedback."""
+        super().prewarm(capacity)
+        dev = self.device
+        size = tuple(self.orig_image_shape)
+        cache = iwe_cache_from_votes(
+            torch.zeros((2,) + size, dtype=self.dtype, device=dev), self.gen)
+        frame = torch.zeros(size, dtype=self.dtype, device=dev)
+        start = initialize_params(torch.Generator(dev).manual_seed(0),
+                                  pyramid_grids(self.spec)[0].shape,
+                                  self.gen, dev)
+        _flow, aux = estimate_frame(None, frame, self._mask, None, self.spec,
+                                    init_params=start, cache=cache,
+                                    device=dev,
+                                    program=self._program(capacity))
+        if self.spec_steady is not None:
+            prev = update_coarse_from_fine(aux["params_per_scale"], self.spec)
+            estimate_frame(None, frame, self._mask, None, self.spec_steady,
+                           prev_params=prev, cache=cache, device=dev,
+                           program=self._program(capacity, steady=True))
 
     def estimate_async(self, events, *args, **kwargs) -> EstimationHandle:
         """Queue the IWE cache and the pyramid solve (and the warm-start
@@ -310,7 +359,8 @@ class PatchEkltPyramid2(SolverBase):
         cache = iwe_cache(ev, self.gen)
         flow, aux = estimate_frame(None, frame, self._mask, self._generator,
                                    used_spec, prev_params=prev, cache=cache,
-                                   device=self.device)
+                                   device=self.device,
+                                   program=self._program(ev.capacity, steady))
         if self._fetch_dtype is not None:
             flow = flow.to(self._fetch_dtype)
         box = self._flow_fetch_box

@@ -7,6 +7,12 @@ objective at each scale, the coarser result upsampled as the next scale's
 start.  The per-frame IWE cache can be supplied (``cache=``), which is how
 the vote kernel runs as its own step ahead of the solve.
 
+Each scale's Adam loop is one step over device state
+(:class:`~event_based_bos_tpu_torch.optim.FirstOrderLoop`), replayed as a
+CUDA graph on the card; a :class:`SolveProgram` keeps the loops, their
+graphs and the constant images' buffers from frame to frame, as the JAX
+package keeps its jitted solve.
+
 Options: ``restrict_to_roi`` evaluates the objective on the
 margin-expanded ROI box with the full-frame cost kept (see
 :class:`PyramidSpec`); ``n_restarts > 1`` solves from that many random
@@ -27,14 +33,14 @@ import torch
 from ..device import resolve_device
 from ..ops.gradients import frame_gradients, poisson_to_flow
 from ..ops.image_warp import resize_bilinear
-from ..optim import run_first_order
+from ..optim import FirstOrderLoop
 from ..types import Events, PatchGrid
 from .generative import (GenerativeSpec, dense_objective, dense_operators,
                          initialize_params, iwe_cache, measured_increment,
                          patch_to_dense)
 
 __all__ = ["PyramidSpec", "pyramid_grids", "scale_iterations", "roi_mask",
-           "roi_crop_box", "solve_pyramid", "estimate_frame",
+           "roi_crop_box", "SolveProgram", "solve_pyramid", "estimate_frame",
            "restart_scores", "select_restart", "update_coarse_from_fine"]
 
 
@@ -179,13 +185,207 @@ def roi_crop_box(spec: PyramidSpec) -> Tuple[int, int, int, int]:
             max(0, spec.roi[2] - m), min(w, spec.roi[3] + m))
 
 
+def _loop_constants(histogram, weights, weight_inverse, gx, gy, mask,
+                    spec: PyramidSpec):
+    """The loop's constant images of one frame, the restricted objective's
+    strips, its generative spec and its crop box: ``(consts, strips, gen,
+    roi_crop)``.
+
+    With ``spec.restrict_to_roi`` the measurement is normalized over the
+    full frame before the crop, the outside part of the prediction norm
+    is sampled from the uncropped gradients, and the images are copied
+    into contiguous boxes (views would make every step's ops stride over
+    the full rows).  With ``gen.compute_dtype`` the images are cast once.
+    """
+    gen = spec.gen
+    measured = measured_increment(histogram, weights) * mask
+    roi_crop = None
+    strips = None
+    if spec.restrict_to_roi:
+        h, w = gen.image_size
+        roi_crop = roi_crop_box(spec)
+        x0, x1, y0, y1 = roi_crop
+        strips = _outside_strips(roi_crop, gx, gy, gen, spec.roi_norm_stride,
+                                 weights=weights)
+        measured, gx, gy, mask, weight_inverse = (
+            a[x0:x1, y0:y1].contiguous()
+            for a in (measured, gx, gy, mask, weight_inverse))
+        weights = (None if weights is None
+                   else weights[x0:x1, y0:y1].contiguous())
+        area_scale = ((x1 - x0) * (y1 - y0)) / float(h * w)
+        gen = dataclasses.replace(gen, cost_weights=_restricted_weights(
+            gen.cost_weights, area_scale))
+    consts = {"measured": measured, "gx": gx, "gy": gy, "mask": mask,
+              "weight_inverse": weight_inverse, "weights": weights}
+    if gen.compute_dtype is not None:
+        consts = {k: None if v is None else v.to(gen.compute_dtype)
+                  for k, v in consts.items()}
+    return consts, strips, gen, roi_crop
+
+
+def _signature(consts, strips):
+    def sig(t):
+        return None if t is None else (tuple(t.shape), t.dtype, t.device)
+
+    return (tuple((k, sig(v)) for k, v in consts.items()),
+            None if strips is None else
+            tuple((len(st[0]), len(st[1])) + tuple(sig(g) for g in st[2:5])
+                  for st in strips))
+
+
+class SolveProgram:
+    """The pyramid's solve for one spec, kept from frame to frame: the
+    counterpart of the JAX package's jitted per-frame solve program.
+
+    It holds the loop's constant images in buffers of its own (the
+    measurement, the gradients, the inverse-event weights, the mask, the
+    event weights, the restricted objective's strips), each scale's
+    interpolation operators and each scale's
+    :class:`~event_based_bos_tpu_torch.optim.FirstOrderLoop`, whose step
+    reads those buffers.  On the card each scale's step is captured at the
+    program's first solve and replayed at every later one; a solve copies
+    its frame's constants and its starts into the buffers and replays.
+    Inputs of other shapes or dtypes rebuild it.  Its outputs are copies,
+    so a later solve (a restart lane, the next frame) leaves them as they
+    are.
+    """
+
+    def __init__(self, spec: PyramidSpec):
+        self.spec = spec
+        self.loops: List[FirstOrderLoop] = []
+        self._signature = None
+        self._buffers: Dict[str, Optional[torch.Tensor]] = {}
+        self._strips = None
+        self._lr = None
+        self._fine_ops = None
+
+    def _build(self, consts, strips, gen, roi_crop, device) -> None:
+        """Own buffers for the constants, and each scale's operators and
+        loop over them."""
+        spec = self.spec
+        cd = gen.compute_dtype or gen.dtype
+        self._buffers = bufs = {k: None if v is None else v.clone()
+                                for k, v in consts.items()}
+        self._strips = own_strips = (
+            None if strips is None else
+            [(r, c) + tuple(g.clone() for g in st) + (area,)
+             for r, c, *st, area in strips])
+        self._fine_ops = dense_operators(pyramid_grids(spec)[-1],
+                                         spec.gen.dtype, device)
+        self.loops = []
+        for grid, n_it in zip(pyramid_grids(spec), scale_iterations(spec)):
+            ops = dense_operators(grid, cd, device, crop=roi_crop)
+            strip_ops = (None if own_strips is None else
+                         [dense_operators(grid, cd, device, rows=st[0],
+                                          cols=st[1])
+                          for st in own_strips])
+
+            def objective(p, _grid=grid, _ops=ops, _strip_ops=strip_ops):
+                return dense_objective(
+                    p, bufs["measured"], bufs["gx"], bufs["gy"],
+                    bufs["weight_inverse"], bufs["mask"], _grid, gen,
+                    weights=bufs["weights"], operators=_ops,
+                    roi_crop=roi_crop, norm_strips=own_strips,
+                    strip_operators=_strip_ops)
+
+            self.loops.append(FirstOrderLoop(
+                objective, n_it, method=spec.method, lr=spec.lr,
+                lr_decay=spec.lr_decay, track_best=spec.track_best,
+                has_aux=True, record_every=spec.record_evolution))
+        self._lr = spec.lr
+
+    def _bind(self, consts, strips) -> None:
+        """Copy a frame's constants into the buffers."""
+        for k, v in consts.items():
+            if v is not None:
+                self._buffers[k].copy_(v)
+        for mine, st in zip(self._strips or (), strips or ()):
+            for dst, src in zip(mine[2:5], st[2:5]):
+                dst.copy_(src)
+
+    def solve(self, histogram: torch.Tensor, weights: Optional[torch.Tensor],
+              weight_inverse: torch.Tensor, gx: torch.Tensor,
+              gy: torch.Tensor, mask: torch.Tensor,
+              generator: Optional[torch.Generator],
+              prev_params: Optional[List[torch.Tensor]] = None,
+              init_params: Optional[torch.Tensor] = None, lr=None):
+        """:func:`solve_pyramid` through this program."""
+        spec = self.spec
+        gen = spec.gen
+        dev = histogram.device
+        consts, strips, gen_loop, roi_crop = _loop_constants(
+            histogram, weights, weight_inverse, gx, gy, mask, spec)
+        signature = _signature(consts, strips)
+        if signature != self._signature:
+            self._build(consts, strips, gen_loop, roi_crop, dev)
+            self._signature = signature
+        else:
+            self._bind(consts, strips)
+        lr = spec.lr if lr is None else lr
+        if torch.is_tensor(lr) or lr != self._lr:
+            for loop in self.loops:
+                loop.set_learning_rate(lr)
+            self._lr = lr
+
+        grids = pyramid_grids(spec)
+        params_per_scale: List[torch.Tensor] = []
+        histories: List[torch.Tensor] = []
+        term_histories: List[Dict[str, torch.Tensor]] = []
+        evolution: List[torch.Tensor] = []
+        params = None
+        for i, (grid, loop) in enumerate(zip(grids, self.loops)):
+            if i == 0:
+                if init_params is not None:
+                    x0 = init_params
+                elif prev_params is not None:
+                    x0 = prev_params[0]
+                else:
+                    x0 = initialize_params(generator, grid.shape, gen, dev)
+            else:
+                x0 = resize_bilinear(params, grid.shape)
+                if prev_params is not None:
+                    x0 = (prev_params[i] + x0) / 2.0
+            result = loop.run(x0)
+            params = result.param
+            params_per_scale.append(params)
+            histories.append(result.history)
+            term_histories.append(result.aux_history)
+            if spec.record_evolution > 0:
+                evolution.append(result.params_history)
+
+        if gen.poisson_model:
+            patch_flow = poisson_to_flow(params[0], ksize=gen.sobel_ksize)
+        elif gen.angle_model:
+            patch_flow = torch.stack([torch.sin(params[0]),
+                                      torch.cos(params[0])])
+        else:
+            patch_flow = params[:2]
+        # select (not multiply) so outside-ROI pixels are exactly +0.0; the
+        # uncropped mask, at full size
+        dense_flow = torch.where(mask != 0,
+                                 patch_to_dense(patch_flow, grids[-1],
+                                                operators=self._fine_ops),
+                                 0.0)
+        aux = {
+            "params_per_scale": params_per_scale,
+            "loss_history": histories,
+            "term_history": term_histories,
+        }
+        if spec.record_evolution > 0:
+            aux["params_history"] = evolution
+        if gen.optimize_warp:
+            aux["pxy"] = patch_to_dense(params[-2:], grids[-1],
+                                        operators=self._fine_ops) * mask
+        return dense_flow, aux
+
+
 def solve_pyramid(histogram: torch.Tensor, weights: Optional[torch.Tensor],
                   weight_inverse: torch.Tensor, gx: torch.Tensor,
                   gy: torch.Tensor, mask: torch.Tensor,
                   generator: Optional[torch.Generator], spec: PyramidSpec,
                   prev_params: Optional[List[torch.Tensor]] = None,
                   init_params: Optional[torch.Tensor] = None,
-                  lr=None):
+                  lr=None, program: Optional[SolveProgram] = None):
     """Coarse-to-fine joint optimization on the inputs' device; returns
     ``(dense_flow, aux)``.
 
@@ -203,106 +403,17 @@ def solve_pyramid(histogram: torch.Tensor, weights: Optional[torch.Tensor],
     uncropped gradients.  With ``gen.compute_dtype`` the loop's constant
     images are cast once; the parameters and the optimizer state stay in
     ``gen.dtype``.
+
+    ``program`` (a :class:`SolveProgram` of ``spec``) runs the solve
+    through its kept buffers and captured steps; without one the solve
+    runs through a program of its own, used once.
     """
-    gen = spec.gen
-    dev = histogram.device
-    measured = measured_increment(histogram, weights) * mask
-    grids = pyramid_grids(spec)
-    iters = scale_iterations(spec)
-
-    roi_crop = None
-    norm_strips = None
-    mask_o = mask
-    if spec.restrict_to_roi:
-        h, w = gen.image_size
-        roi_crop = roi_crop_box(spec)
-        x0, x1, y0, y1 = roi_crop
-        norm_strips = _outside_strips(roi_crop, gx, gy, gen,
-                                      spec.roi_norm_stride, weights=weights)
-        # the loop's constants, copied once into contiguous boxes (views
-        # would make every step's ops stride over the full rows)
-        measured, gx, gy, mask, weight_inverse = (
-            a[x0:x1, y0:y1].contiguous()
-            for a in (measured, gx, gy, mask, weight_inverse))
-        weights = (None if weights is None
-                   else weights[x0:x1, y0:y1].contiguous())
-        area_scale = ((x1 - x0) * (y1 - y0)) / float(h * w)
-        gen = dataclasses.replace(gen, cost_weights=_restricted_weights(
-            gen.cost_weights, area_scale))
-
-    cd = gen.compute_dtype or gen.dtype
-    if gen.compute_dtype is not None:
-        measured = measured.to(cd)
-        gx = gx.to(cd)
-        gy = gy.to(cd)
-        mask = mask.to(cd)
-        weight_inverse = weight_inverse.to(cd)
-        weights = None if weights is None else weights.to(cd)
-
-    params_per_scale: List[torch.Tensor] = []
-    histories: List[torch.Tensor] = []
-    term_histories: List[Dict[str, torch.Tensor]] = []
-    evolution: List[torch.Tensor] = []
-    params = None
-    for i, (grid, n_it) in enumerate(zip(grids, iters)):
-        if i == 0:
-            if init_params is not None:
-                x0 = init_params
-            elif prev_params is not None:
-                x0 = prev_params[0]
-            else:
-                x0 = initialize_params(generator, grid.shape, gen, dev)
-        else:
-            x0 = resize_bilinear(params, grid.shape)
-            if prev_params is not None:
-                x0 = (prev_params[i] + x0) / 2.0
-        ops = dense_operators(grid, cd, dev, crop=roi_crop)
-        strip_ops = (None if norm_strips is None else
-                     [dense_operators(grid, cd, dev, rows=st[0], cols=st[1])
-                      for st in norm_strips])
-
-        def objective(p, _grid=grid, _ops=ops, _strip_ops=strip_ops):
-            return dense_objective(p, measured, gx, gy, weight_inverse, mask,
-                                   _grid, gen, weights=weights,
-                                   operators=_ops, roi_crop=roi_crop,
-                                   norm_strips=norm_strips,
-                                   strip_operators=_strip_ops)
-
-        result = run_first_order(
-            objective, x0, n_it, method=spec.method,
-            lr=spec.lr if lr is None else lr, lr_decay=spec.lr_decay,
-            track_best=spec.track_best, has_aux=True,
-            record_every=spec.record_evolution)
-        params = result.param
-        params_per_scale.append(params)
-        histories.append(result.history)
-        term_histories.append(result.aux_history)
-        if spec.record_evolution > 0:
-            evolution.append(result.params_history)
-
-    if gen.poisson_model:
-        patch_flow = poisson_to_flow(params[0], ksize=gen.sobel_ksize)
-    elif gen.angle_model:
-        patch_flow = torch.stack([torch.sin(params[0]), torch.cos(params[0])])
-    else:
-        patch_flow = params[:2]
-    fine_ops = dense_operators(grids[-1], gen.dtype, dev)
-    # select (not multiply) so outside-ROI pixels are exactly +0.0; the
-    # uncropped mask, at full size
-    dense_flow = torch.where(mask_o != 0,
-                             patch_to_dense(patch_flow, grids[-1],
-                                            operators=fine_ops), 0.0)
-    aux = {
-        "params_per_scale": params_per_scale,
-        "loss_history": histories,
-        "term_history": term_histories,
-    }
-    if spec.record_evolution > 0:
-        aux["params_history"] = evolution
-    if gen.optimize_warp:
-        aux["pxy"] = patch_to_dense(params[-2:], grids[-1],
-                                    operators=fine_ops) * mask_o
-    return dense_flow, aux
+    if program is None:
+        program = SolveProgram(spec)
+    elif program.spec != spec:
+        raise ValueError("the solve program was built for another spec")
+    return program.solve(histogram, weights, weight_inverse, gx, gy, mask,
+                         generator, prev_params, init_params, lr)
 
 
 def _on(a, device, dtype):
@@ -316,7 +427,7 @@ def estimate_frame(ev: Optional[Events], frame, mask,
                    init_params: Optional[torch.Tensor] = None,
                    lr=None,
                    cache: Optional[Tuple[torch.Tensor, ...]] = None,
-                   device=None):
+                   device=None, program: Optional[SolveProgram] = None):
     """Whole per-frame solve: gradients + IWE cache + pyramid optimization.
 
     Runs on the GPU unless ``device`` asks otherwise; ``frame``, ``mask``,
@@ -334,6 +445,8 @@ def estimate_frame(ev: Optional[Events], frame, mask,
     gradients (under either ``restart_mode``).  The returned flow and aux
     are those of the lane with the lowest score: the least finest-scale
     loss under ``track_best``, else the final one (ties: the lowest lane).
+    ``program`` (a :class:`SolveProgram` of ``spec``) is the solve program
+    every lane runs through; without one each solve builds its own.
     """
     dev = resolve_device(device)
     gen = spec.gen
@@ -356,12 +469,15 @@ def estimate_frame(ev: Optional[Events], frame, mask,
         shape = pyramid_grids(spec)[0].shape
         inits = [initialize_params(generator, shape, gen, dev)
                  for _ in range(spec.n_restarts)]
+        program = program or SolveProgram(spec)
         lanes = [solve_pyramid(hist, weights, weight_inverse, gx, gy, mask,
-                               None, spec, init_params=x0, lr=lr)
+                               None, spec, init_params=x0, lr=lr,
+                               program=program)
                  for x0 in inits]
         return select_restart(lanes, spec.track_best)
     return solve_pyramid(hist, weights, weight_inverse, gx, gy, mask,
-                         generator, spec, prev_params, init_params, lr=lr)
+                         generator, spec, prev_params, init_params, lr=lr,
+                         program=program)
 
 
 def restart_scores(lanes, track_best: bool) -> torch.Tensor:

@@ -174,23 +174,50 @@ def test_profile_writes_its_prof(tmp_path, monkeypatch):
         assert pstats.Stats(str(path)).total_calls > 0
 
 
-def _tree_digest(root):
+#: the JAX runtime's build product in ``native/`` (git-ignored): the JAX
+#: package's ``runtime.ensure_built`` runs ``make -C native`` to write it,
+#: which other test processes may do at any moment
+JAX_BUILD_PRODUCT = "libebt_runtime.so"
+
+
+def _native_digest(root):
+    """The names in ``root`` and the bytes of every file there but the JAX
+    runtime's build product."""
     h = hashlib.sha256()
     for p in sorted(root.rglob("*")):
-        h.update(str(p.relative_to(root)).encode())
+        rel = p.relative_to(root)
+        if str(rel) == JAX_BUILD_PRODUCT:
+            continue
+        h.update(str(rel).encode())
         if p.is_file():
             h.update(p.read_bytes())
     return h.hexdigest()
 
 
-def test_ensure_built_force_rebuilds_outside_native():
+def test_ensure_built_force_rebuilds_outside_native(monkeypatch):
+    """A forced build compiles into ``runtime.BUILD_DIR`` and writes nothing
+    into ``native/``: the compiler's ``-o`` target lies under the build
+    directory, and the names and tracked sources of ``native/`` are
+    unchanged."""
     native = REPO / "native"
-    before = _tree_digest(native)
+    before = _native_digest(native)
+    real_run = runtime.subprocess.run
+    targets = []
+
+    def run(cmd, *args, **kwargs):
+        if "-o" in cmd:
+            targets.append(pathlib.Path(cmd[cmd.index("-o") + 1]).resolve())
+        return real_run(cmd, *args, **kwargs)
+
+    monkeypatch.setattr(runtime.subprocess, "run", run)
     assert runtime.ensure_built(force=True) is True
     assert runtime.library_path().is_file()
     assert runtime.available()
     assert runtime.ensure_built() is True
-    assert _tree_digest(native) == before
+    build_dir = runtime.BUILD_DIR.resolve()
+    assert targets, "the forced build ran no compiler"
+    assert all(build_dir in t.parents for t in targets), targets
+    assert _native_digest(native) == before
 
 
 def test_ensure_built_force_retries_after_a_failure(monkeypatch):
