@@ -90,10 +90,10 @@ failure:
    decodes at 720×1280, the mp4s exist (with their frame counts) exactly
    where cv2 has a codec, the loss plots exactly where matplotlib is
    installed (else its one warning), the three ``pred_flow{i}.npy`` equal
-   phase 6's bit for bit, the bundle's clipped IWE and event mask equal
-   the plain vote bit for bit, and the vote launches a frame are exactly
-   the IWE cache's, the bundle's clipped IWE's and the bundle's mask's
-   (one each).  Prints ms/frame, the steady frame's ``finalize/visualize``
+   phase 6's bit for bit, every frame's bundle clipped IWE and event mask
+   equal the plain vote bit for bit, and the vote launches a frame are
+   exactly the IWE cache's one and the bundle's two (its clipped IWE and
+   its mask, inside one kept program).  Prints ms/frame, the steady frame's ``finalize/visualize``
    and ``finalize/solve_wait`` shares, and the device time of the render
    bundle and of one Poisson view.  Then one CMax frame (3 votes, 260
    launches of each stencil kernel), ``run_mode: accumulate`` and the
@@ -227,7 +227,26 @@ failure:
    pool MB.  Then phase 6's serving config with ``prewarm`` (one capture
    line, logged before the first frame; ``pred_flow`` and error texts byte
    for byte phase 6's), and with ``warm_start`` and ``steady_n_iter`` with
-   and without ``prewarm`` (two capture lines each; the same bytes).
+   and without ``prewarm`` (two capture lines each; the same bytes);
+16. the facades' kept programs (a program per event capacity, captured at
+   its first frame and replayed after): the CMax cell through a
+   ``CmaxProgram`` (its histograms one captured program, its loops kept)
+   and GML Adam, PatchEklt and PatchEkltDependent at phase 11's scene
+   through a ``GmlProgram`` / ``PatchProgram``, each against the per-call
+   route (a program used once a frame) in turns, a warm-up and three (CMax)
+   or one timed frame each: the routes and one ``eager_loops()`` frame
+   bit-identical, captures in the first kept frame only, one vote and (CMax)
+   260 launches of each stencil kernel a kept frame, as many events in its
+   ``torch.profiler`` trace, and every vote of a kept program (eager or
+   replayed inside a capture) held against ``hat_vote_plain`` on CPU
+   copies of its arguments; ms/frame of both routes, the kept frame's idle
+   share, capture ms and pool MB.  Then phase 6's serving loop on
+   ``configs/synthetic_cmax.yaml``'s solver section and on the pyramid
+   config, through the kept programs and through the per-call route, with
+   and without ``pipeline: true``, and one frame under ``eager_loops()``:
+   ``pred_flow`` and both error texts byte-identical across all of them;
+   ms/frame after the first frame, and the device ms of the IWE cache and
+   of the error pair a call on each route.
 
 Prints the whole run's seconds, a ``kernels`` JSON line, the
 ``nvidia-smi`` line, and last
@@ -1280,6 +1299,49 @@ class CallerLaunches:
             setattr(module, attr, fn)
 
 
+def serve_callers(cache_module):
+    """The serving loop's voting callers: the IWE cache (as
+    ``cache_module`` names it) and the error pair (its event mask is the
+    pair's one vote; ``flow_error_pair_device`` from the solve's device
+    flow, ``flow_error_pair`` from a host flow)."""
+    from event_based_bos_tpu_torch.solver import programs
+
+    return {"iwe_cache": (cache_module, "iwe_cache"),
+            "error_pair": (programs, "flow_error_pair_device"),
+            "error_pair_host_flow": (programs, "flow_error_pair")}
+
+
+def mask_votes(per_caller):
+    """The event-mask votes of the serving loop's error pairs."""
+    return per_caller["error_pair"] + per_caller["error_pair_host_flow"]
+
+
+def check_pair_mask(call):
+    """One ``programs.flow_error_pair_device`` call of the loop (its
+    arguments and result, as :class:`CallerLaunches` records it) against
+    the plain vote: the kernel's vote of its events equal to the plain
+    vote, and the pair's masked errors equal to those under the plain
+    vote's mask, bit for bit.  Returns ``(max |vote − plain|, same)``."""
+    import torch
+
+    from event_based_bos_tpu_torch.ops import iwe_cuda
+    from event_based_bos_tpu_torch.ops.flow import calculate_flow_error
+
+    (ev, est, gt_c, sign, _shape, crop), _kw, (_errs, masked), _l = call
+    kernel_vote = iwe_cuda.bilinear_vote_cuda(ev, (H, W), nudge=True)
+    plain_vote = iwe_cuda.hat_vote_plain(
+        ev.x.to(torch.float32), ev.y.to(torch.float32), None, (H, W),
+        valid=ev.valid, nudge=True)
+    x0, x1, y0, y1 = crop
+    mask = (plain_vote != 0)[None][:, x0:x1, y0:y1]
+    pred = (est.to(torch.float32) * float(sign))[None, :, x0:x1, y0:y1]
+    want = calculate_flow_error(gt_c.to(torch.float32)[None], pred,
+                                event_mask=mask[None])
+    same = (torch.equal(kernel_vote, plain_vote)
+            and all(torch.equal(masked[k], want[k]) for k in want))
+    return float((kernel_vote - plain_vote).abs().max()), same
+
+
 def drive_serving(config, loader, device, gt_estimator, viz=None,
                   callers=None):
     """``cli.evaluate_per_frames`` on a solver built as ``cli.main`` builds
@@ -1295,7 +1357,7 @@ def drive_serving(config, loader, device, gt_estimator, viz=None,
     import torch
 
     from event_based_bos_tpu_torch import cli, kernels, solver
-    from event_based_bos_tpu_torch.solver import facades, programs
+    from event_based_bos_tpu_torch.solver import facades
 
     if viz is None:
         shutil.rmtree(config["output_dir"], ignore_errors=True)
@@ -1313,7 +1375,8 @@ def drive_serving(config, loader, device, gt_estimator, viz=None,
     def recorded(events, *args, **kwargs):
         if not first:
             first.update(events=events, frame=kwargs["frame"],
-                         state=solv._generator.get_state())
+                         state=solv._generator.get_state(), dispatched=[])
+        first["dispatched"].append(time.perf_counter())
         handle = estimate_async(events, *args, **kwargs)
         first.setdefault("device_flow", getattr(handle, "device_flow",
                                                 None))
@@ -1327,9 +1390,7 @@ def drive_serving(config, loader, device, gt_estimator, viz=None,
     log = logging.getLogger(cli.__name__)
     log.addHandler(handler)
     log.setLevel(logging.INFO)
-    callers = CallerLaunches(callers or {
-        "iwe_cache": (facades, "iwe_cache"),
-        "eventmask": (programs, "eventmask")})
+    callers = CallerLaunches(callers or serve_callers(facades))
     try:
         torch.cuda.synchronize()
         kernels.reset_launches()
@@ -1337,7 +1398,8 @@ def drive_serving(config, loader, device, gt_estimator, viz=None,
         cli.evaluate_per_frames(config, loader, solv, viz, device=device,
                                 gt_estimator=gt_estimator)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        first["end"] = time.perf_counter()
+        wall = first["end"] - t0
         launches = dict(kernels.launches)
     finally:
         callers.restore()
@@ -1455,7 +1517,8 @@ def run_pipelined(config, loader, device, gt, state, sync_ms):
     assert all(same_flows), "pipeline: true changed the served flows"
     assert all(same_texts), "pipeline: true changed the error texts"
     assert same_state, "pipeline: true started from another generator state"
-    assert per_caller == {"iwe_cache": 3, "eventmask": 3}, per_caller
+    assert per_caller["iwe_cache"] == mask_votes(per_caller) == 3, \
+        per_caller
     assert all(c[3] == 1 for calls in callers.calls.values()
                for c in calls), "a caller voted more than once a call"
     assert launches["hat_vote_image"] == 6, launches
@@ -1471,7 +1534,6 @@ def run_serving(device):
     import torch
 
     from event_based_bos_tpu_torch import data, kernels
-    from event_based_bos_tpu_torch.ops import iwe_cuda
     from event_based_bos_tpu_torch.solver.cmax import scale_iterations
     from event_based_bos_tpu_torch.solver.generative import iwe_cache
     from event_based_bos_tpu_torch.solver.pyramid import estimate_frame
@@ -1498,7 +1560,8 @@ def run_serving(device):
     zero_epe = zero_flow_epe(loader, (1, 2, 3))
     head, shares = section_shares(lines, n)
     assert n == 3, f"{n} frames served, expected 3"
-    assert per_caller == {"iwe_cache": 3, "eventmask": 3}, per_caller
+    assert per_caller["iwe_cache"] == mask_votes(per_caller) == 3, \
+        per_caller
     assert all(c[3] == 1 for calls in callers.calls.values()
                for c in calls), "a caller voted more than once a call"
     assert launches["hat_vote_image"] == 6, launches
@@ -1511,15 +1574,11 @@ def run_serving(device):
                                cache=iwe_cache(first["events"], solv.gen),
                                device=dev)
     same_flow = torch.equal(direct, first["device_flow"])
-    # the event mask's vote at the loop's arguments vs its plain version
-    ev = callers.calls["eventmask"][0][0][0]
-    kernel_vote = iwe_cuda.bilinear_vote_cuda(ev, (H, W), nudge=True)
-    plain_vote = iwe_cuda.hat_vote_plain(
-        ev.x.to(torch.float32), ev.y.to(torch.float32), None, (H, W),
-        valid=ev.valid, nudge=True)
-    mask_err = float((kernel_vote - plain_vote).abs().max())
-    mask_same = (torch.equal(kernel_vote, plain_vote) and torch.equal(
-        callers.calls["eventmask"][0][2], (plain_vote != 0)[None]))
+    # the error pair's event-mask vote at the loop's arguments vs its
+    # plain version, every frame (the first eager, the others replayed)
+    checks = [check_pair_mask(c) for c in callers.calls["error_pair"]]
+    mask_err = max(e for e, _same in checks)
+    mask_same = all(same for _e, same in checks)
     kernels.reset_launches()
     print(f"serving pyramid: {n} frames, {ms:.1f} ms/frame (wall clock); "
           f"vote launches {launches['hat_vote_image']} ({per_caller}); "
@@ -1551,12 +1610,12 @@ def run_serving(device):
     epe = check_serving_outputs(cconfig, 2, zero_outside=False)
     head, shares = section_shares(lines, n)
     print(f"serving cmax: {n} frames, {ms:.1f} ms/frame (wall clock); "
-          f"launches {launches} (event mask {per_caller['eventmask']}); "
+          f"launches {launches} (event mask {mask_votes(per_caller)}); "
           f"EPE per frame without mask {epe[SERVE_TEXTS[0]]}")
     print(f"serving cmax profile: {head}: {shares}")
     assert solv.spec == cmax_cell_spec(), solv.spec
     assert n == 2 and steps == 260, (n, steps)
-    assert per_caller["eventmask"] == 2, per_caller
+    assert mask_votes(per_caller) == 2, per_caller
     assert launches == {"hat_vote_image": 4, "cmax_stencil_fwd": 520,
                         "cmax_stencil_bwd": 520}, launches
     results["cmax"] = dict(ms_per_frame=ms, frames=n, steady=head,
@@ -1684,7 +1743,7 @@ def run_visualize(device, loader, gt):
 
     from event_based_bos_tpu_torch import cli, kernels
     from event_based_bos_tpu_torch.ops.poisson import poisson_view
-    from event_based_bos_tpu_torch.solver import cmax, facades, programs
+    from event_based_bos_tpu_torch.solver import facades, programs
 
     codec = codec_available()
     have_mpl = importlib.util.find_spec("matplotlib") is not None
@@ -1695,9 +1754,9 @@ def run_visualize(device, loader, gt):
     logging.getLogger("event_based_bos_tpu_torch.visualizer").addHandler(
         handler)
     results = {}
-    bundle_callers = {"bundle_clipped": (programs, "clipped_iwe"),
-                      "bundle_mask": (programs, "eventmask"),
-                      "render_bundle": (programs, "render_bundle")}
+    # the bundle is one kept program: its clipped IWE and event mask are
+    # two votes inside it, replayed after the first frame
+    bundle_callers = {"render_bundle": (programs, "render_bundle")}
 
     # the pyramid: phase 6's config and frames, visualizing
     config = visualize_config("pyramid")
@@ -1711,13 +1770,12 @@ def run_visualize(device, loader, gt):
     videos_s = time.perf_counter() - t0
     out = config["output_dir"]
     per_caller = callers.launches()
-    bundle_votes = per_caller.pop("render_bundle")
     head, shares = section_shares(lines, n)
     assert n == 3, f"{n} frames, expected 3"
-    assert per_caller == {"iwe_cache": n, "bundle_clipped": n,
-                          "bundle_mask": n}, per_caller
-    assert bundle_votes == 2 * n and launches["hat_vote_image"] == 3 * n, \
-        (bundle_votes, launches)
+    assert per_caller == {"iwe_cache": n, "render_bundle": 2 * n}, per_caller
+    assert all(c[3] == 2 for c in callers.calls["render_bundle"]), \
+        "a bundle voted other than twice"
+    assert launches["hat_vote_image"] == 3 * n, launches
     check_pngs(out, [f"{p}{i}.png" for p in FRAME_PNGS for i in range(n)])
     videos = check_videos(out, PREFIX_VIDEOS, n)
     videos.update(check_videos(out, COMPARISON_VIDEOS, n))
@@ -1732,13 +1790,14 @@ def run_visualize(device, loader, gt):
         a = np.load(os.path.join(out, f"pred_flow{i}.npy"))
         b = np.load(os.path.join(SERVE_DIR, "pyramid", f"pred_flow{i}.npy"))
         same.append(a.dtype == b.dtype and a.tobytes() == b.tobytes())
-    # the bundle's votes against the plain vote, at the loop's arguments
-    (ev, _shape, max_scale), _kw, clipped, _l = callers.calls[
-        "bundle_clipped"][0]
-    plain_clipped, plain_mask = plain_clipped_and_mask(ev, max_scale)
-    mask = callers.calls["bundle_mask"][0][2]
-    bundle_exact = (torch.equal(clipped, plain_clipped)
-                    and torch.equal(mask, plain_mask))
+    # every frame's bundle votes against the plain vote, at the loop's
+    # arguments (the first frame's run eagerly, the others replayed)
+    bundle_exact = []
+    for b_args, _kw, planes, _l in callers.calls["render_bundle"]:
+        plain_clipped, plain_mask = plain_clipped_and_mask(b_args[0],
+                                                           b_args[4])
+        bundle_exact.append(torch.equal(planes["clipped"], plain_clipped)
+                            and torch.equal(planes["mask"], plain_mask))
     # the bundle's and the Poisson views' device time on frame 0's inputs
     b_args, b_kw = callers.calls["render_bundle"][0][:2]
     flush = l2_flush(torch.device(device))
@@ -1757,7 +1816,7 @@ def run_visualize(device, loader, gt):
           f"history plots {plots or 'none'}")
     print(f"visualize pyramid profile: {head}: {shares}")
     assert all(same), f"the visualizing loop's flows differ from phase 6's"
-    assert bundle_exact, "the bundle's votes differ from the plain vote"
+    assert all(bundle_exact), "the bundle's votes differ from the plain vote"
     results["pyramid"] = dict(
         ms_per_frame=ms, frames=n, steady=head, sections=shares,
         vote_launches=per_caller, bundle_ms=bundle_ms,
@@ -1771,17 +1830,15 @@ def run_visualize(device, loader, gt):
     viz = new_visualizer(config, device)
     solv, launches, callers, _first, ms, lines = drive_serving(
         config, loader, device, gt, viz=viz,
-        callers={"histograms": (cmax, "binned_histograms"),
+        callers={"cmax_solve": (facades, "estimate_frame_cmax"),
                  **bundle_callers})
     cli.write_videos(viz, solv)
     per_caller = callers.launches()
-    per_caller.pop("render_bundle")
     check_pngs(config["output_dir"], [f"{p}0.png" for p in FRAME_PNGS])
     print(f"visualize cmax: 1 frame, {ms:.1f} ms; launches {launches} "
           f"({per_caller})")
     assert solv.iter_cnt == 1
-    assert per_caller == {"histograms": 1, "bundle_clipped": 1,
-                          "bundle_mask": 1}, per_caller
+    assert per_caller == {"cmax_solve": 1, "render_bundle": 2}, per_caller
     assert launches == {"hat_vote_image": 3, "cmax_stencil_fwd": 260,
                         "cmax_stencil_bwd": 260}, launches
     results["cmax"] = dict(ms_per_frame=ms, launches=launches)
@@ -2541,7 +2598,7 @@ def run_other_solvers(device, loader, gt):
     from event_based_bos_tpu_torch import events_from_ndarray, kernels
     from event_based_bos_tpu_torch.solver import (
         estimate_frame_cmax, estimate_frame_dependent, estimate_frame_gml,
-        estimate_frame_patch, facades, generative, programs)
+        estimate_frame_patch, facades, generative)
     from event_based_bos_tpu_torch.solver.cmax import CmaxSpec
 
     t_phase = time.perf_counter()
@@ -2689,8 +2746,7 @@ def run_other_solvers(device, loader, gt):
                             time_list=((0.01, 0.15),))
     solv, launches, callers, first, ms, lines = drive_serving(
         config, loader, device, gt,
-        callers={"iwe_cache": (generative, "iwe_cache"),
-                 "eventmask": (programs, "eventmask")})
+        callers=serve_callers(generative))
     n = solv.iter_cnt
     per_caller = callers.launches()
     epe = check_serving_outputs(config, 2, zero_outside=False)
@@ -2708,7 +2764,8 @@ def run_other_solvers(device, loader, gt):
           f"{epe[SERVE_TEXTS[0]]}; first frame bit-identical to "
           f"estimate_frame_gml {same}")
     assert n == 2 and solv.spec.gen.param_dim == 3, (n, solv.spec)
-    assert per_caller == {"iwe_cache": 2, "eventmask": 2}, per_caller
+    assert per_caller["iwe_cache"] == mask_votes(per_caller) == 2, \
+        per_caller
     assert launches["hat_vote_image"] == 4, launches
     # one constant flow over the frame (no ROI mask in this solver)
     assert all(np.ptp(f[i]) == 0 for f in flows for i in (0, 1))
@@ -4342,9 +4399,10 @@ def serving_prewarm(config, loader, device, gt):
         all(i < first for i in captures)
 
 
-def same_outputs(a, b, n):
-    """Whether two serving runs wrote the same ``pred_flow{i}.npy`` and
-    error texts, byte for byte."""
+def same_outputs(a, b, n, lines=None):
+    """Whether two serving runs wrote the same ``pred_flow{i}.npy`` (the
+    first ``n``) and error texts (their first ``lines`` lines, or all of
+    them), byte for byte."""
     import numpy as np
 
     flows = [np.load(os.path.join(a, f"pred_flow{i}.npy")).tobytes()
@@ -4354,7 +4412,9 @@ def same_outputs(a, b, n):
     for name in SERVE_TEXTS:
         with open(os.path.join(a, name)) as fa, \
                 open(os.path.join(b, name)) as fb:
-            texts.append(fa.read() == fb.read())
+            ta, tb = fa.read().splitlines(), fb.read().splitlines()
+            texts.append(ta[:lines] == tb[:lines] if lines
+                         else ta == tb)
     return flows + texts
 
 
@@ -4376,7 +4436,9 @@ def graph_prewarm(loader, gt, device):
           f"{launches['hat_vote_image']}")
     assert len(lines) == 1 and early, lines
     assert all(same), "prewarm changed the served frames"
-    assert launches["hat_vote_image"] == 6, launches
+    # the frames' 6, and prewarm's first call of the IWE-cache program on
+    # its all-invalid batch
+    assert launches["hat_vote_image"] == 7, launches
     out = {"capture_lines": len(lines), "same": same}
     runs = {}
     for warm in (False, True):
@@ -4410,6 +4472,503 @@ def run_graph_routes(events, frame, gt_flow, loader, gt, device):
     out["seconds"] = time.perf_counter() - t0
     print(f"phase 15: {out['seconds']:.1f} s")
     print(json.dumps({"graph_routes": out}))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the kept per-frame programs
+# ---------------------------------------------------------------------------
+
+def plain_vote_error(x, y, values, image_size, kw, out):
+    """``(max |out − plain|, max |plain|)`` of one vote launch against
+    ``hat_vote_plain`` on CPU copies of its arguments, with the kernel's
+    own casts (float32 coordinates and weights)."""
+    import torch
+
+    from event_based_bos_tpu_torch.ops import iwe_cuda
+
+    def host(t):
+        return t.cpu() if isinstance(t, torch.Tensor) else t
+
+    want = iwe_cuda.hat_vote_plain(
+        host(x).float(), host(y).float(),
+        None if values is None else host(values).float(), image_size,
+        **{k: host(v) for k, v in kw.items()})
+    got = out.cpu()
+    assert got.shape == want.shape, (got.shape, want.shape)
+    peak = float(want.abs().max()) if want.numel() else 0.0
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    return err, peak
+
+
+class VoteCheck:
+    """Holds the vote kernel's launches against ``hat_vote_plain`` on CPU
+    copies of their arguments, as :func:`checked_votes` does, without
+    reading the host inside a frame: a launch outside a capture keeps
+    copies of its arguments and its output, and :meth:`check` compares them
+    once; a launch that a capture records (a kept program's) keeps its
+    arguments and output themselves, which every replay of that program
+    rewrites together, and each :meth:`check` compares the latest replay's.
+    :meth:`restore` unwraps."""
+
+    def __init__(self):
+        import event_based_bos_tpu_torch.solver.cmax  # noqa: F401  binds hat_vote
+        from event_based_bos_tpu_torch.ops import iwe_cuda
+
+        self.kernel = iwe_cuda.hat_vote
+        self.eager, self.captured = [], []
+        self.checked = {"eager": 0, "replayed": 0}
+        self.max_rel_err = 0.0
+        self.modules = [mod for name, mod in list(sys.modules.items())
+                        if name.startswith("event_based_bos_tpu_torch")
+                        and getattr(mod, "hat_vote", None) is self.kernel]
+        for mod in self.modules:
+            mod.hat_vote = self.vote
+
+    def vote(self, x, y, values, image_size, **kw):
+        import torch
+
+        out = self.kernel(x, y, values, image_size, **kw)
+        if x.device.type == "cuda":
+            if torch.cuda.is_current_stream_capturing():
+                # held: the graph's replays rewrite these very tensors
+                self.captured.append((x, y, values, image_size, kw, out))
+            else:
+                def own(t):
+                    return t.clone() if isinstance(t, torch.Tensor) else t
+
+                self.eager.append((own(x), own(y), own(values), image_size,
+                                   {k: own(v) for k, v in kw.items()},
+                                   out.clone()))
+        return out
+
+    def check(self, replayed=True):
+        """Compare the launches kept so far; ``replayed=False`` leaves the
+        captured ones (their graphs have not run yet)."""
+        import torch
+
+        torch.cuda.synchronize()
+        kinds = [("eager", self.eager)]
+        if replayed:
+            kinds.append(("replayed", self.captured))
+        for kind, calls in kinds:
+            for call in calls:
+                err, peak = plain_vote_error(*call)
+                self.checked[kind] += 1
+                self.max_rel_err = max(self.max_rel_err,
+                                       err / peak if peak else err)
+        self.eager = []
+        assert self.max_rel_err <= 1e-5, self.max_rel_err
+        return dict(self.checked)
+
+    def restore(self):
+        for mod in self.modules:
+            mod.hat_vote = self.kernel
+
+
+class CaptureCount:
+    """Counts the captures of every graph (``graphs._capture`` wrapped: the
+    loops' steps and the whole-function programs); :meth:`restore`
+    unwraps."""
+
+    def __init__(self):
+        from event_based_bos_tpu_torch import graphs
+
+        self.n = 0
+        self._original = original = graphs._capture
+
+        def counted(step, device):
+            self.n += 1
+            return original(step, device)
+
+        graphs._capture = counted
+
+    def restore(self):
+        from event_based_bos_tpu_torch import graphs
+
+        graphs._capture = self._original
+
+
+class parent_route:
+    """The route the port ran before the facades kept programs (the
+    comparison's "per-call" route): a GML, tiled or CMax facade solves
+    each frame through a program of its own, and every whole-function
+    program (the IWE cache, the evaluation programs) dispatches op by op.
+    The pyramid keeps its solve program, as it already did."""
+
+    def __enter__(self):
+        from event_based_bos_tpu_torch import graphs
+        from event_based_bos_tpu_torch.solver import facades
+
+        self.saved = [(cls, cls._program) for cls in (
+            facades.GenerativeMaximumLikelihood, facades.PatchEklt,
+            facades.ContrastMaximization)]
+        for cls, _fn in self.saved:
+            cls._program = lambda self, *a, **k: None
+        self.call = graphs.CapturedProgram.__call__
+
+        def op_by_op(program, *args):
+            return program.fn(*graphs._numbers_on(args,
+                                                   graphs._device_of(args)))
+
+        graphs.CapturedProgram.__call__ = op_by_op
+        return self
+
+    def __exit__(self, *exc):
+        from event_based_bos_tpu_torch import graphs
+
+        for cls, fn in self.saved:
+            cls._program = fn
+        graphs.CapturedProgram.__call__ = self.call
+
+
+def program_memory(program):
+    """A kept solve program's capture ms and pool bytes: its loops' and,
+    where it has them, its histograms' or IWE cache's."""
+    capture = list(program.kept.capture_ms)
+    pool = program.kept.pool_bytes
+    extra = getattr(program, "histograms", None) or getattr(program, "cache",
+                                                            None)
+    if extra is not None:
+        capture += extra.capture_ms
+        pool += extra.pool_bytes
+    return capture, pool
+
+
+def idle_share(trace):
+    cuda_events, span_ms = trace
+    busy = sum(us for _n, us in cuda_events) / 1e3
+    return 1.0 - busy / span_ms, busy, span_ms
+
+
+def kept_cell(name, kept, per_call, program, frames, votes, steps=None):
+    """One solve through a kept program against the per-call route: the
+    routes alternated (``frames`` each, the first a warm-up), CUDA-event
+    ms/frame; the captures each kept frame made (the first only); the
+    votes of every kept frame held against the plain vote (a replayed
+    program's after its frame); a traced kept frame (its idle share and
+    kernel events); the kept route bit-identical to the per-call route and
+    to ``eager_loops()``.  Returns the cell's numbers."""
+    import torch
+
+    from event_based_bos_tpu_torch import kernels
+    from event_based_bos_tpu_torch.graphs import eager_loops
+
+    t_cell = time.perf_counter()
+    count, check = CaptureCount(), VoteCheck()
+    captures, ms, out = [], {"kept": [], "per_call": []}, {}
+
+    def kept_frame():
+        before = count.n
+        result = kept()
+        captures.append(count.n - before)
+        return result
+
+    try:
+        for i in range(frames):
+            for route, fn in (("kept", kept_frame), ("per_call", per_call)):
+                torch.cuda.synchronize()
+                s, e = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+                s.record()
+                out[route] = fn()
+                e.record()
+                e.synchronize()
+                ms[route].append(s.elapsed_time(e))
+                # the first kept frame captured: its graphs ran no replay
+                checked = check.check(replayed=i > 0)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        trace_kept = profiled(kept_frame)
+        launches = dict(kernels.launches)
+        checked = check.check()
+    finally:
+        check.restore()
+        count.restore()
+    log = CaptureLog()
+    try:
+        per_call()
+    finally:
+        log.restore()
+    same = {"per_call": same_tree(out["kept"], out["per_call"])}
+    with eager_loops():
+        same["eager_loops"] = same_tree(out["kept"], kept())
+    ms = {route: t[1:] for route, t in ms.items()}
+    kept_ms = statistics.median(ms["kept"])
+    call_ms = statistics.median(ms["per_call"])
+    idle_k, busy_k, span_k = idle_share(trace_kept)
+    # the per-call frame runs the same kernels (bit for bit the same
+    # numbers): its idle share from the kept frame's busy time over its
+    # CUDA-event span (a trace of it would add minutes of processing)
+    idle_c = 1.0 - busy_k / call_ms
+    capture_ms, pool = program_memory(program)
+    fwd = sum("cmax_stencil_kernel" in n and "false" in n
+              for n, _us in trace_kept[0])
+    bwd = sum("cmax_stencil_kernel" in n and "true" in n
+              for n, _us in trace_kept[0])
+    vote_events = sum("hat_vote_kernel" in n for n, _us in trace_kept[0])
+    call_pool = sum(b for _c, b in log.captures)
+    card = card_line()
+    print(f"phase 16: {name}: kept program {kept_ms:.1f} ms/frame (timed "
+          f"{', '.join(f'{t:.1f}' for t in ms['kept'])}) beside the per-call "
+          f"route {call_ms:.1f} ms/frame "
+          f"({', '.join(f'{t:.1f}' for t in ms['per_call'])}); CUDA events, "
+          f"alternated, after a warm-up each; {card}")
+    print(f"phase 16: {name}: device idle share: kept {idle_k:.4f} (a "
+          f"traced frame, busy {busy_k:.1f} of {span_k:.1f} ms), per-call "
+          f"{idle_c:.4f} (that busy time in its {call_ms:.1f} ms); {card}")
+    print(f"phase 16: {name}: captures a kept frame {captures}; capture ms "
+          f"{[round(c, 1) for c in capture_ms]}; the kept program's pools "
+          f"{pool / 2**20:.1f} MB, a per-call frame's {call_pool / 2**20:.1f}"
+          f" MB; {card}")
+    print(f"phase 16: {name}: bit-identical {same}; launches of a kept frame "
+          f"{launches}; its trace holds {fwd} forward and {bwd} backward "
+          f"stencil events and {vote_events} vote events; votes held "
+          f"against the plain vote {checked}, max relative error "
+          f"{check.max_rel_err:.2e}; {time.perf_counter() - t_cell:.1f} s")
+    assert captures[0] > 0 and not any(captures[1:]), captures
+    assert all(same.values()), f"{name}: the routes differ: {same}"
+    assert launches["hat_vote_image"] == votes == vote_events, \
+        (launches, vote_events)
+    # each replayed kept frame's votes (the timed ones and the traced one)
+    assert checked["replayed"] >= votes * frames, checked
+    if steps is not None:
+        assert launches["cmax_stencil_fwd"] == launches[
+            "cmax_stencil_bwd"] == fwd == bwd == steps, (launches, fwd, bwd)
+    return dict(kept_ms_per_frame=kept_ms, per_call_ms_per_frame=call_ms,
+                kept_frames_ms=ms["kept"], per_call_frames_ms=ms["per_call"],
+                kept_idle_share=idle_k, per_call_idle_share=idle_c,
+                kept_busy_ms=busy_k, traced_frame_ms=span_k,
+                captures=captures, capture_ms=capture_ms,
+                pool_mb=pool / 2**20, per_call_pool_mb=call_pool / 2**20,
+                launches=launches, bit_identical=same,
+                votes_checked=checked)
+
+
+def kept_solvers(events, device):
+    """(a), (b) of phase 16: the CMax cell through a kept ``CmaxProgram``,
+    then GML Adam, PatchEklt and PatchEkltDependent at phase 11's scene
+    through theirs, each against the per-call route."""
+    import torch
+
+    from event_based_bos_tpu_torch import events_from_ndarray
+    from event_based_bos_tpu_torch.solver import facades
+    from event_based_bos_tpu_torch.solver.cmax import (CmaxProgram,
+                                                       estimate_frame_cmax,
+                                                       scale_iterations)
+    from event_based_bos_tpu_torch.solver.gml import (GmlProgram,
+                                                      estimate_frame_gml)
+    from event_based_bos_tpu_torch.solver.patch import (
+        PatchProgram, estimate_frame_dependent, estimate_frame_patch)
+
+    dev = torch.device(device)
+    out = {}
+    spec = cmax_cell_spec()
+    ev = events_from_ndarray(events, capacity=CAPACITY, device=dev)
+    program = CmaxProgram(spec)
+    out["cmax"] = kept_cell(
+        "cmax", lambda: estimate_frame_cmax(ev, None, None, spec, device=dev,
+                                            program=program),
+        lambda: estimate_frame_cmax(ev, None, None, spec, device=dev),
+        program, frames=4, votes=1, steps=sum(scale_iterations(spec)))
+    assert out["cmax"]["launches"]["cmax_stencil_fwd"] == 260
+    del program
+
+    frame, evn = other_solvers_scene()
+    ev = events_from_ndarray(evn, capacity=CAPACITY, device=dev)
+    frame_t = torch.as_tensor(frame, dtype=torch.float32, device=dev)
+    x0 = torch.tensor([0.1, -0.1, 0.0, 0.0], device=dev)
+    gspec = gml_spec("Adam", N_ITER)
+    program = GmlProgram(gspec)
+    out["gml_adam"] = kept_cell(
+        "GML Adam", lambda: estimate_frame_gml(ev, frame_t, None, gspec,
+                                               x0=x0, device=dev,
+                                               program=program),
+        lambda: estimate_frame_gml(ev, frame_t, None, gspec, x0=x0,
+                                   device=dev),
+        program, frames=2, votes=1)
+    del program
+    for solver, estimate in (("patch_eklt", estimate_frame_patch),
+                             ("patch_eklt_dependent",
+                              estimate_frame_dependent)):
+        solv = facades.collections[solver](
+            (H, W), (H, W), solver_config=other_solver_config(solver),
+            device=dev)
+        pspec = solv.spec
+        program = PatchProgram(pspec, joint=solv.JOINT)
+
+        def solve(program=None, _spec=pspec, _estimate=estimate):
+            return _estimate(ev, frame_t, torch.Generator(dev).manual_seed(0),
+                             _spec, device=dev, program=program)
+
+        out[solver] = kept_cell(solver, lambda: solve(program), solve,
+                                program, frames=2, votes=1)
+        del program, solv
+    return out
+
+
+def synthetic_cmax_config(name, time_list=((0.01, 0.18),), **top):
+    """Phase 6's config with ``configs/synthetic_cmax.yaml``'s solver
+    section (read with ``yaml``) at full width."""
+    import yaml
+
+    from event_based_bos_tpu_torch.utils.config import propagate_config
+
+    config = serving_config(name, method="contrast_maximization",
+                            time_list=time_list)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "configs", "synthetic_cmax.yaml")
+    with open(path) as f:
+        solver = yaml.safe_load(f)["solver"]
+    solver["filter"] = {"filters": None, "parameters": {}}
+    config["solver"] = solver
+    config.update(top)
+    propagate_config(config)
+    config["solver"].setdefault("flow_convention", config["flow_convention"])
+    return config
+
+
+class CallerSpans:
+    """CUDA-event spans of each call of module functions (``name ->
+    (module, attribute)``), waited for in :meth:`ms`; :meth:`restore`
+    unwraps."""
+
+    def __init__(self, callers):
+        import torch
+
+        self.spans = {name: [] for name in callers}
+        self._originals = []
+        for name, (module, attr) in callers.items():
+            fn = getattr(module, attr)
+
+            def wrapped(*args, _fn=fn, _name=name, **kwargs):
+                s, e = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+                s.record()
+                out = _fn(*args, **kwargs)
+                e.record()
+                self.spans[_name].append((s, e))
+                return out
+
+            setattr(module, attr, wrapped)
+            self._originals.append((module, attr, fn))
+
+    def ms(self):
+        return {name: [s.elapsed_time(e) for s, e in spans]
+                for name, spans in self.spans.items()}
+
+    def restore(self):
+        for module, attr, fn in self._originals:
+            setattr(module, attr, fn)
+
+
+def clear_kept_programs():
+    """Drop the kept evaluation programs (``solver/programs.py``'s
+    ``jit_*`` caches), so that the next run captures them anew."""
+    from event_based_bos_tpu_torch.solver import programs
+
+    for name in programs.__all__:
+        if name.startswith("jit_"):
+            getattr(programs, name).cache_clear()
+
+
+def serving_routes(name, make_config, loader, gt, device, n_frames):
+    """Phase 6's serving loop on one config through the kept programs and
+    through the per-call route, each with and without ``pipeline: true``,
+    and one frame under ``eager_loops()``: ``pred_flow`` and both error
+    texts byte-identical across routes; ms/frame of each run (host wall
+    clock) and the device ms a frame of the IWE cache and of the error
+    pair (CUDA events around each call)."""
+    from event_based_bos_tpu_torch import graphs
+    from event_based_bos_tpu_torch.solver import facades, programs
+
+    timed = {"iwe_cache": (facades, "iwe_cache"),
+             "error_pair": (programs, "flow_error_pair_device"),
+             "error_pair_host_flow": (programs, "flow_error_pair")}
+    runs = {}
+    check = None
+    for route in ("kept", "per_call"):
+        for pipelined in (False, True):
+            config = make_config(f"{name}_{route}_{int(pipelined)}")
+            config["pipeline"] = pipelined
+            spans = CallerSpans(timed)
+            if route == "kept":
+                # the evaluation programs too are captured in this run
+                clear_kept_programs()
+                check = VoteCheck()
+            try:
+                if route == "kept":
+                    solv, launches, _c, first, ms, _l = drive_serving(
+                        config, loader, device, gt)
+                    checked = check.check()
+                else:
+                    with parent_route():
+                        solv, launches, _c, first, ms, _l = drive_serving(
+                            config, loader, device, gt)
+                    checked = None
+            finally:
+                spans.restore()
+                if route == "kept":
+                    check.restore()
+            check_serving_outputs(config, n_frames,
+                                  zero_outside=name == "pyramid")
+            # each frame from its dispatch to the next (the last: to the
+            # loop's end); the first holds the kept route's captures
+            marks = first["dispatched"] + [first["end"]]
+            frame_ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+            runs[(route, pipelined)] = dict(
+                dir=config["output_dir"], ms_per_frame=ms,
+                frame_ms=frame_ms,
+                steady_ms_per_frame=statistics.median(frame_ms[1:]),
+                launches=launches, device_ms_per_call=spans.ms(),
+                device_ms_steady={k: statistics.median(v[1:])
+                                  for k, v in spans.ms().items()
+                                  if len(v) > 1},
+                votes_checked=checked,
+                programs=len(getattr(solv, "_programs", {})))
+    config = make_config(f"{name}_eager", time_list=((0.01, 0.11),))
+    with graphs.eager_loops():
+        drive_serving(config, loader, device, gt)
+    check_serving_outputs(config, 1, zero_outside=name == "pyramid")
+    base = runs[("kept", False)]["dir"]
+    same = {f"{route}{'_pipelined' if p else ''}": same_outputs(
+        base, r["dir"], n_frames) for (route, p), r in runs.items()}
+    # the one eager frame against the kept run's first frame and lines
+    same["eager_loops"] = same_outputs(base, config["output_dir"], 1,
+                                       lines=1)
+    card = card_line()
+    for (route, p), r in runs.items():
+        print(f"phase 16: serving {name} {route}{', pipeline' if p else ''}:"
+              f" {r['steady_ms_per_frame']:.1f} ms/frame after the first "
+              f"(frames {[round(t, 1) for t in r['frame_ms']]}, wall clock; "
+              f"{r['ms_per_frame']:.1f} over all); device ms a call after "
+              f"the first {r['device_ms_steady']} (CUDA events; every call "
+              f"{r['device_ms_per_call']}); launches {r['launches']}; votes "
+              f"held against the plain vote {r['votes_checked']}; {card}")
+    print(f"phase 16: serving {name}: pred_flow and error texts "
+          f"byte-identical to the kept synchronous run's {same}")
+    assert all(all(v) for v in same.values()), same
+    assert runs[("kept", False)]["launches"] == runs[("per_call", False)][
+        "launches"], runs
+    return {f"{route}{'_pipelined' if p else ''}": {
+        k: v for k, v in r.items() if k != "dir"}
+        for (route, p), r in runs.items()} | {"same": same}
+
+
+def run_kept_programs(events, loader, gt, device):
+    """Phase 16: the facades' kept programs against the per-call route."""
+    t0 = time.perf_counter()
+    out = kept_solvers(events, device)
+    print(f"phase 16: solvers {time.perf_counter() - t0:.1f} s")
+    out["serving_cmax"] = serving_routes(
+        "cmax", synthetic_cmax_config, loader, gt, device, 3)
+    print(f"phase 16: serving cmax done at {time.perf_counter() - t0:.1f} s")
+    out["serving_pyramid"] = serving_routes(
+        "pyramid", lambda name, **kw: serving_config(name, **kw), loader, gt,
+        device, 3)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 16: {out['seconds']:.1f} s")
+    print(json.dumps({"kept_programs": out}))
     return out
 
 
@@ -4506,6 +5065,12 @@ def main():
             entry["name"]]
         entry["launches_graph_cmax"] = routes["cmax"]["launches"][
             entry["name"]]
+    kept = run_kept_programs(events, loader, gt, "cuda")
+    for entry in entries:
+        entry["launches_kept_cmax"] = kept["cmax"]["launches"][entry["name"]]
+    entries[0]["launches_kept_other_solvers"] = {
+        k: kept[k]["launches"]["hat_vote_image"]
+        for k in ("gml_adam", "patch_eklt", "patch_eklt_dependent")}
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": entries}))

@@ -1,4 +1,4 @@
-"""Optimizer loops as replayed CUDA graphs.
+"""Optimizer loops and per-frame programs as replayed CUDA graphs.
 
 The JAX package runs a first-order solve as one ``lax.scan`` under
 ``jax.jit``: the step is compiled once and the loop never returns to the
@@ -32,6 +32,23 @@ The graph route on the card:
 
 The launches of the port's kernels that a captured step makes are counted
 once per replay (:func:`event_based_bos_tpu_torch.kernels.recording`).
+
+Two more pieces keep a frame's work from frame to frame, as the JAX
+package keeps one ``jax.jit`` program per shape:
+
+* :class:`CapturedProgram` captures a whole function of tensors (the IWE
+  cache, CMax's histograms, the per-frame evaluation programs): its first
+  call with a signature runs it eagerly on buffers of its own and captures
+  it, every later call copies its arguments into the buffers, replays and
+  returns copies of the outputs;
+* :class:`KeptSolve` holds a solve's per-frame constants in buffers of its
+  own and the solve's loops over them (each loop's step a
+  :class:`StepGraph`), and the interpolation matrices between scales: the
+  solve programs of the pyramid, CMax, GML and the tiled solvers.
+
+Whatever a captured graph reads stays alive while the graph does: its
+buffers, the loops' state, and the operators it was built with (the
+caches of ``ops/iwe.py`` and ``ops/poisson.py`` never drop an entry).
 """
 
 from __future__ import annotations
@@ -39,13 +56,14 @@ from __future__ import annotations
 import contextlib
 import gc
 import time
-from typing import Callable, Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
 from . import kernels
 
-__all__ = ["WARMUP_STEPS", "eager_loops", "graph_route", "StepGraph"]
+__all__ = ["WARMUP_STEPS", "eager_loops", "graph_route", "StepGraph",
+           "CapturedProgram", "KeptSolve"]
 
 #: eager steps on the side stream before the capture
 WARMUP_STEPS = 2
@@ -55,9 +73,9 @@ _eager_depth = 0
 
 @contextlib.contextmanager
 def eager_loops() -> Iterator[None]:
-    """Inside the block, the optimizer loops on the card dispatch their step
-    op by op instead of replaying a graph of it: the same arithmetic, for
-    comparisons with the graph route."""
+    """Inside the block, the optimizer loops and the kept programs on the
+    card dispatch their work op by op instead of replaying a graph of it:
+    the same arithmetic, for comparisons with the graph route."""
     global _eager_depth
     _eager_depth += 1
     try:
@@ -113,6 +131,31 @@ def _capture(step: Callable[[], None], device: torch.device):
     return _Captured(step, device)
 
 
+def _recorded_capture(step: Callable[[], None], device: torch.device):
+    """:func:`_capture` with the port's kernel launches that ``step`` makes
+    recorded: returns ``(graph, launches a replay, capture ms)``."""
+    if device.type == "cuda":
+        # a kernel wrapper's first call inside the capture would build
+        # and load the library
+        kernels.library()
+    t0 = time.perf_counter()
+    with kernels.recording() as tally:
+        graph = _capture(step, device)
+    return graph, dict(tally), (time.perf_counter() - t0) * 1e3
+
+
+def _count_replay(launches: Dict[str, int]) -> None:
+    for name, k in launches.items():
+        kernels.launches[name] += k
+
+
+def _on(stream: Optional["torch.cuda.Stream"]):
+    """Inside the block, ``stream`` is current (nothing on the CPU)."""
+    if stream is None:
+        return contextlib.nullcontext()
+    return torch.cuda.stream(stream)
+
+
 class StepGraph:
     """Runs a step function ``n`` times at a time on the graph route.
 
@@ -134,11 +177,6 @@ class StepGraph:
         self._stream = (torch.cuda.Stream(device) if device.type == "cuda"
                         else None)
 
-    def _on_side_stream(self):
-        if self._stream is None:
-            return contextlib.nullcontext()
-        return torch.cuda.stream(self._stream)
-
     def run(self, n: int) -> None:
         """``n`` steps, queued behind the current stream's work; the current
         stream waits for them."""
@@ -148,7 +186,7 @@ class StepGraph:
                    if self._stream is not None else None)
         if current is not None:
             self._stream.wait_stream(current)
-        with self._on_side_stream():
+        with _on(self._stream):
             done = 0
             if self.graph is None:
                 done = min(n, WARMUP_STEPS)
@@ -158,19 +196,260 @@ class StepGraph:
                     self._capture()
             for _ in range(n - done):
                 self.graph.replay()
-                for name, k in self.launches.items():
-                    kernels.launches[name] += k
+                _count_replay(self.launches)
         if current is not None:
             current.wait_stream(self._stream)
 
     def _capture(self) -> None:
-        if self.device.type == "cuda":
-            # a kernel wrapper's first call inside the capture would build
-            # and load the library
-            kernels.library()
-        t0 = time.perf_counter()
-        with kernels.recording() as tally:
-            self.graph = _capture(self.step, self.device)
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
-        self.launches = dict(tally)
+        self.graph, self.launches, self.capture_ms = _recorded_capture(
+            self.step, self.device)
         self.pool_bytes = self.graph.pool_bytes
+
+
+# ---------------------------------------------------------------------------
+# whole-function programs
+# ---------------------------------------------------------------------------
+
+def _leaves(tree) -> Iterator:
+    """The leaves (tensors, numbers, None) of a nest of tuples, lists,
+    dicts and named tuples, in order."""
+    if isinstance(tree, (list, tuple)):
+        for x in tree:
+            yield from _leaves(x)
+    elif isinstance(tree, dict):
+        for x in tree.values():
+            yield from _leaves(x)
+    else:
+        yield tree
+
+
+def _rebuild(tree, leaves: Iterator):
+    """``tree``'s structure with its leaves taken in order from ``leaves``."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_rebuild(x, leaves) for x in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(x, leaves) for x in tree)
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, leaves) for k, v in tree.items()}
+    return next(leaves)
+
+
+def _map(fn: Callable, tree):
+    """``tree`` with ``fn`` applied to each tensor leaf."""
+    return _rebuild(tree, (fn(x) if torch.is_tensor(x) else x
+                           for x in _leaves(tree)))
+
+
+def _signature(tree):
+    """A hashable description of a nest: its structure and each tensor's
+    shape, dtype and device (a number is described by its kind only)."""
+    if isinstance(tree, (list, tuple)):
+        return (type(tree), tuple(_signature(x) for x in tree))
+    if isinstance(tree, dict):
+        return (dict, tuple((k, _signature(v)) for k, v in tree.items()))
+    if torch.is_tensor(tree):
+        return (tuple(tree.shape), tree.dtype, tree.device)
+    if tree is None:
+        return None
+    if isinstance(tree, (bool, int, float)):
+        return "number"
+    raise TypeError(f"a program takes tensors, numbers and None, got "
+                    f"{type(tree).__name__}")
+
+
+def _clone(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` in its own storage, with its strides: a view that
+    skips memory (a pitched box, ``ops/cmax_cuda.py``, or an ROI crop) is
+    copied with the span it covers, so the copy keeps the layout a kernel
+    reads and an op's order of summation."""
+    if t.is_contiguous() or t.numel() == 0 or \
+            any(st <= 0 for st in t.stride()):
+        return t.clone()  # a broadcast view is copied whole
+    span = 1 + sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+    covered = t.as_strided((span,), (1,), t.storage_offset()).clone()
+    return covered.as_strided(t.shape, t.stride(), 0)
+
+
+def _device_of(tree) -> torch.device:
+    for x in _leaves(tree):
+        if torch.is_tensor(x):
+            return x.device
+    raise ValueError("a program needs at least one tensor argument")
+
+
+def _numbers_on(tree, device: torch.device):
+    """``tree`` with each number as a 0-d float64 tensor on ``device``: a
+    binary op with a floating tensor rounds it to the tensor's dtype, as a
+    Python number is rounded."""
+    return _rebuild(tree, (
+        torch.full((), float(x), dtype=torch.float64, device=device)
+        if isinstance(x, (bool, int, float)) else x for x in _leaves(tree)))
+
+
+class _KeptCall:
+    """One signature of a :class:`CapturedProgram`: the argument buffers,
+    the captured call and its outputs."""
+
+    def __init__(self, fn: Callable, args: Tuple, device: torch.device):
+        self.fn = fn
+        self.device = device
+        self.buffers = _map(_clone, _numbers_on(args, device))
+        self.outputs = None
+        self.graph = None
+        self.launches: Dict[str, int] = {}
+        self.capture_ms: Optional[float] = None
+        self.pool_bytes = 0
+        self._stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                        else None)
+
+    def _record(self) -> None:
+        self.outputs = self.fn(*self.buffers)
+
+    def first(self):
+        """The first call: ``fn`` on the buffers eagerly (its result is the
+        call's, and the run builds the libraries' lazy state), then the
+        capture, on a side stream that the current stream waits for."""
+        current = (torch.cuda.current_stream(self.device)
+                   if self._stream is not None else None)
+        if current is not None:
+            self._stream.wait_stream(current)
+        with _on(self._stream):
+            out = self.fn(*self.buffers)
+            self.graph, self.launches, self.capture_ms = _recorded_capture(
+                self._record, self.device)
+        self.pool_bytes = self.graph.pool_bytes
+        if current is not None:
+            current.wait_stream(self._stream)
+            for t in _leaves(out):
+                if torch.is_tensor(t):
+                    # made on the side stream, used on the caller's
+                    t.record_stream(current)
+        return out
+
+    def replay(self, args):
+        """A later call: the arguments into the buffers, one replay on the
+        current stream, copies of the outputs."""
+        for dst, src in zip(_leaves(self.buffers), _leaves(args)):
+            if torch.is_tensor(src):
+                dst.copy_(src)
+            elif src is not None:
+                dst.fill_(float(src))
+        self.graph.replay()
+        _count_replay(self.launches)
+        return _map(_clone, self.outputs)
+
+
+class CapturedProgram:
+    """``fn(*args)`` kept as a captured program per argument signature:
+    the counterpart of a ``jax.jit`` program, which is compiled once per
+    shape.
+
+    ``fn`` takes tensors, numbers and None (in tuples, lists, dicts or
+    named tuples such as ``Events``) and returns new tensors in such a
+    nest.  On the graph route (:func:`graph_route`) the first call with a
+    signature (the nest, each tensor's shape, dtype and device) copies its
+    arguments into buffers of its own, runs ``fn`` on them eagerly (its
+    result is the call's) and captures it; every later call with that
+    signature copies its arguments into the buffers, replays and returns
+    copies of the outputs, so a later call leaves an earlier result as it
+    was.  Elsewhere (the CPU, :func:`eager_loops`) ``fn`` runs op by op on
+    the arguments.  Either way a number reaches ``fn`` as a 0-d float64
+    tensor (a buffer on the graph route), which a floating op rounds to its
+    dtype as it would round the number.  The port's kernel launches of a
+    replay are counted once per replay.  A capture that fails raises.
+    """
+
+    def __init__(self, fn: Callable):
+        self.fn = fn
+        self.kept: Dict[object, _KeptCall] = {}
+
+    def __call__(self, *args):
+        device = _device_of(args)
+        if not graph_route(device):
+            return self.fn(*_numbers_on(args, device))
+        signature = _signature(args)
+        call = self.kept.get(signature)
+        if call is None:
+            call = self.kept[signature] = _KeptCall(self.fn, args, device)
+            return call.first()
+        return call.replay(args)
+
+    @property
+    def capture_ms(self) -> List[float]:
+        return [c.capture_ms for c in self.kept.values()]
+
+    @property
+    def pool_bytes(self) -> int:
+        return sum(c.pool_bytes for c in self.kept.values())
+
+
+# ---------------------------------------------------------------------------
+# solve programs
+# ---------------------------------------------------------------------------
+
+class KeptSolve:
+    """What a solve program keeps from frame to frame: the frame's
+    constants in buffers of its own, the solve's loops over them (each a
+    :class:`~event_based_bos_tpu_torch.optim.FirstOrderLoop`, whose step is
+    captured at its first run and replayed after) and the interpolation
+    matrices between scales.
+
+    :meth:`bind` copies a frame's constants into the buffers; constants of
+    another signature replace the buffers and drop the loops, and the
+    caller builds new loops over :attr:`buffers`.
+    """
+
+    def __init__(self):
+        self.buffers = None
+        self.loops: List = []
+        self._signature = None
+        self._resize: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def bind(self, consts) -> bool:
+        """Copy ``consts`` (a nest of tensors and None) into the buffers;
+        returns True when the buffers were made anew (the first frame, or
+        constants of another signature), whose loops the caller builds."""
+        signature = _signature(consts)
+        if signature == self._signature:
+            for dst, src in zip(_leaves(self.buffers), _leaves(consts)):
+                if src is not None:
+                    dst.copy_(src)
+            return False
+        self.buffers = _map(_clone, consts)
+        self._signature = signature
+        self.loops = []
+        return True
+
+    def resize(self, image: torch.Tensor, out_shape) -> torch.Tensor:
+        """``ops/image_warp.py::resize_bilinear`` with its two matrices
+        built once per shape (a build copies from the host)."""
+        from .ops.image_warp import resize_matrix
+
+        h, w = image.shape[-2:]
+        oh, ow = out_shape
+        if (h, w) == (oh, ow):
+            return image
+        key = (h, w, oh, ow, image.dtype, image.device)
+        if key not in self._resize:
+            self._resize[key] = (
+                resize_matrix(h, oh, image.dtype, image.device),
+                resize_matrix(w, ow, image.dtype, image.device))
+        mh, mw = self._resize[key]
+        return torch.matmul(torch.matmul(mh, image), mw.T)
+
+    def release(self) -> None:
+        """Drop the loops' graphs and their memory pools now (a program used
+        once): a loop and its graph refer to each other, so the collector
+        would free them only at its next run."""
+        for loop in self.loops:
+            loop.graph = None
+
+    @property
+    def capture_ms(self) -> List[float]:
+        return [loop.graph.capture_ms for loop in self.loops
+                if loop.graph is not None and loop.graph.graph is not None]
+
+    @property
+    def pool_bytes(self) -> int:
+        return sum(loop.graph.pool_bytes for loop in self.loops
+                   if loop.graph is not None)

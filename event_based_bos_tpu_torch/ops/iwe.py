@@ -80,11 +80,12 @@ def blur_operators(shape: Tuple[int, int], sigma: float,
                  .to(device=device, dtype=dtype) for n in shape)
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def cached_blur_operators(shape, sigma, mode, dtype, device, ksize=None):
     """:func:`blur_operators`, built once per shape, σ, mode, dtype, device
     and size (a build copies from the host): the same matrices, so the
-    same numbers."""
+    same numbers.  Never dropped: a captured program
+    (``graphs.CapturedProgram``) reads the ones it was captured with."""
     return blur_operators(shape, sigma, ksize, mode=mode, dtype=dtype,
                           device=device)
 

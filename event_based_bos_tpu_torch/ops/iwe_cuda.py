@@ -146,10 +146,15 @@ def hat_vote_plain(x: torch.Tensor, y: torch.Tensor,
                            polarity_planes=polarity_planes, scale=scale,
                            plane=plane, planes=n_planes, offset=offset,
                            origin=origin, nudge=nudge)
-    flat = torch.zeros((n_planes * h * pitch,), dtype=corners[0][3].dtype,
-                       device=x.device)
+    size = n_planes * h * pitch
+    flat = torch.zeros((size,), dtype=corners[0][3].dtype, device=x.device)
     for q, r, c, val, inb in corners:
-        flat.index_add_(0, ((q * h + r) * pitch + c)[inb], val[inb])
+        # a dropped corner adds +0.0 at its own index, clamped into the
+        # buffer (no boolean indexing, so no host read: the plain version
+        # runs inside a captured program too; and no one slot that every
+        # dropped corner's atomic add would contend for on the card)
+        idx = ((q * h + r) * pitch + c).clamp(0, size - 1)
+        flat.index_add_(0, idx, torch.where(inb, val, 0.0))
     return _shaped(flat.view(n_planes, h, pitch), w,
                    2 if polarity_planes is not None else planes)
 

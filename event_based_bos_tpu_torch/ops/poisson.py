@@ -37,7 +37,7 @@ def _dst2_matrix_np(n: int) -> np.ndarray:
     return (f * d).astype(np.float64)
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)  # a captured program reads it
 def _cached_dst2(n: int, dtype: torch.dtype, device: torch.device
                  ) -> torch.Tensor:
     return torch.as_tensor(_dst2_matrix_np(n)).to(device=device, dtype=dtype)

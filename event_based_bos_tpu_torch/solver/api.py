@@ -318,10 +318,9 @@ class SolverBase(WireUploadMixin):
         in on the device.  Returns ``fetch() -> dict``."""
         ev = self._to_events(events)
         sign = -1.0 if self.flow_convention == "physical" else 1.0
-        factor = float(np.float32(float(scale) * sign))
-        flow = (est_device.to(torch.float32) * factor).to(self.dtype)
-        fetch = fetch_later([programs.fwl(ev, flow, self.orig_image_shape,
-                                          bool(self.normalize_t_in_batch))])
+        fetch = fetch_later([programs.fwl_device(
+            ev, est_device, float(scale) * sign, self.orig_image_shape,
+            bool(self.normalize_t_in_batch), self.dtype)])
         return lambda: {"FWL": fetch()[0].item()}
 
     def save_flow_error_as_text(self, nth_frame: int, flow_error_dict: dict,

@@ -25,6 +25,7 @@ The dense model takes the first-order methods only; any other name raises
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import List, Optional, Tuple
 
@@ -32,23 +33,23 @@ import torch
 
 from .. import costs as costs_mod
 from ..device import resolve_device
+from ..graphs import CapturedProgram, KeptSolve
 from ..ops.cmax_cuda import binned_warp_accumulate
 from ..ops.events import _masked_min_max
-from ..ops.image_warp import (resize_bilinear, shift_image_matrix,
-                              warp_image_stencil)
+from ..ops.image_warp import shift_image_matrix, warp_image_stencil
 from ..ops.iwe import bilinear_vote, blur_operators, gaussian_blur
 from ..ops.iwe_cuda import hat_vote
 from ..ops.warp import (calculate_reftime, warp_event_2dof,
                         warp_event_dense_flow)
-from ..optim import (SAMPLER_METHODS, SCIPY_METHODS, run_first_order,
+from ..optim import (SAMPLER_METHODS, SCIPY_METHODS, FirstOrderLoop,
                      run_sampler, run_scipy_method)
 from ..types import Events, PatchGrid
 from .generative import dense_operators, patch_to_dense
 
 __all__ = ["CmaxSpec", "contrast_loss", "time_bin_index",
            "binned_histograms", "binned_iwe",
-           "scale_iterations", "solve_cmax_translation", "solve_cmax_dense",
-           "estimate_frame_cmax"]
+           "scale_iterations", "CmaxProgram", "solve_cmax_translation",
+           "solve_cmax_dense", "estimate_frame_cmax"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,26 +219,36 @@ def binned_iwe(hists: torch.Tensor, dt: torch.Tensor, flow: torch.Tensor,
     return iwe
 
 
-def solve_cmax_translation(ev: Events,
-                           generator: Optional[torch.Generator],
-                           spec: CmaxSpec,
-                           x0: Optional[torch.Tensor] = None, draws=None):
-    """Global 2-DoF CMax fit; returns ``(motion [2], result)``.
+def _translation_bounds(spec: CmaxSpec):
+    """The translation's box: the leading pair of ``param_bounds`` (configs
+    that reuse a wider GML-style parameter block), a short block filled
+    with the default box."""
+    pb = tuple(spec.param_bounds[:2])
+    if len(pb) < 2:
+        pb = pb + ((-30.0, 30.0),) * (2 - len(pb))
+    return pb
 
-    The motion is the *warp* parameter (events displaced by +v need warp
-    −v to sharpen); the flow is its negative.  With ``time_bins > 0`` each
-    bin's histogram shifts by ``dt_b·θ`` through banded matmuls
-    (:func:`shift_image_matrix`, exact for any shift); ``time_bins = 0``
-    warps every event.  The samplers draw inside the bounds box from
-    ``generator`` (or take ``draws``, see :func:`..optim.run_sampler`); the
-    scipy and first-order methods project every iterate onto it.
-    """
-    dev = ev.t.device
-    # the IWE has the events' and the motion's promoted dtype
-    blur = _blur_operators(spec.image_size,
-                           torch.promote_types(ev.x.dtype, spec.dtype), spec,
-                           dev)
 
+def _grids(spec: CmaxSpec) -> List[PatchGrid]:
+    """The dense model's patch grids, coarsest first."""
+    return [PatchGrid(spec.image_size, (p, p), (p, p))
+            for p in (spec.coarsest_patch // (2 ** i)
+                      for i in range(spec.n_scales))]
+
+
+def _frame_constants(ev: Events, spec: CmaxSpec, histograms):
+    """A frame's constants of the CMax objectives: the binned histograms
+    and bin times through ``histograms(ev)`` (``time_bins > 0``), else the
+    events and their reference time."""
+    if spec.time_bins > 0:
+        hists, dts = histograms(ev)
+        return {"hists": hists, "dts": dts}
+    return {"ev": ev, "ref_time": calculate_reftime(ev, spec.direction)}
+
+
+def _translation_objective(consts, spec: CmaxSpec, blur):
+    """The translation's objective of θ over a frame's constants
+    (:func:`_frame_constants`), with the IWE blur's operators ``blur``."""
     def finish(iwe):
         if spec.iwe_sigma:
             iwe = gaussian_blur(iwe, spec.iwe_sigma, mode="reflect",
@@ -248,24 +259,192 @@ def solve_cmax_translation(ev: Events,
         return contrast_loss(iwe, spec)
 
     if spec.time_bins > 0:
-        hists, dts = binned_histograms(ev, spec)
-
         def objective(theta):
             # event warp x' = x + dt·θ → bin content shifts by +dt_b·θ
-            shifted = shift_image_matrix(hists, dts[:, None] * theta)
+            shifted = shift_image_matrix(consts["hists"],
+                                         consts["dts"][:, None] * theta)
             return finish(torch.sum(shifted, dim=0))
     else:
-        ref_time = calculate_reftime(ev, spec.direction)
-
         def objective(theta):
-            warped = warp_event_2dof(ev, theta, ref_time, normalize_t=True)
+            warped = warp_event_2dof(consts["ev"], theta, consts["ref_time"],
+                                     normalize_t=True)
             return contrast_loss(_roi_iwe(warped, spec, blur), spec)
+    return objective
 
-    # configs that reuse a wider GML-style parameter block keep the leading
-    # pair; a short block falls back to the default box
-    pb = tuple(spec.param_bounds[:2])
-    if len(pb) < 2:
-        pb = pb + ((-30.0, 30.0),) * (2 - len(pb))
+
+class CmaxProgram:
+    """CMax's first-order solve for one spec, kept from frame to frame: the
+    counterpart of the JAX package's jitted ``estimate_frame_cmax``.
+
+    The binned histograms (one vote, :func:`binned_histograms`) are a
+    :class:`~event_based_bos_tpu_torch.graphs.CapturedProgram`, captured at
+    the first frame of an event capacity and replayed after; with
+    ``time_bins = 0`` the events themselves are the frame's constants.  A
+    :class:`~event_based_bos_tpu_torch.graphs.KeptSolve` holds them in
+    buffers of its own with the solve's loops over them: each scale's
+    :class:`~event_based_bos_tpu_torch.optim.FirstOrderLoop` of the dense
+    model (with its interpolation operators, the blur's operators and the
+    resize matrices between scales), or the translation's loop (with its
+    box).  A solve copies its frame into the buffers and replays; inputs
+    of other shapes or dtypes rebuild the loops.  ``kept=False`` is a
+    program used once (the per-call route): its histograms run op by op
+    and its loops' graphs are dropped after the solve.  Outputs are
+    copies.  The translation's samplers and scipy methods are host-driven
+    and take no program (:func:`solve_cmax_translation`); the dense model
+    raises ``KeyError`` on them, as the JAX package does.
+    """
+
+    def __init__(self, spec: CmaxSpec, kept: bool = True):
+        self.spec = spec
+        self.kept = KeptSolve()
+        self._keep = kept
+        self._fine_ops = None
+        self._bounds = None
+        translation = spec.motion_model != "dense-flow"
+        crop = None if translation else _roi_box(spec)
+        pitched = spec.use_kernel and not translation
+        fn = functools.partial(binned_histograms, spec=spec, crop=crop,
+                               pitched=pitched)
+        self.histograms = CapturedProgram(fn) if kept else fn
+
+    def _objective_dense(self, grid, device):
+        spec = self.spec
+        bufs = self.kept.buffers
+        ops = dense_operators(grid, spec.dtype, device,
+                              crop=_roi_box(spec) if spec.time_bins > 0
+                              else None)
+        blur = self._blur
+
+        def objective(p):
+            flow = patch_to_dense(p, grid, operators=ops)
+            if spec.time_bins > 0:
+                iwe = binned_iwe(bufs["hists"], bufs["dts"], flow, spec, blur)
+            else:
+                warped = warp_event_dense_flow(bufs["ev"], flow,
+                                               bufs["ref_time"],
+                                               normalize_t=True)
+                iwe = _roi_iwe(warped, spec, blur)
+            loss = contrast_loss(iwe, spec)
+            if spec.smoothness:
+                loss = loss + spec.smoothness * costs_mod.image_gradient(
+                    {"flow": flow, "weights": 1.0, "omit_boundary": True})
+            return loss
+
+        return objective
+
+    def _build(self, ev: Events) -> None:
+        spec = self.spec
+        dev = ev.x.device
+        promoted = torch.promote_types(ev.x.dtype, spec.dtype)
+        if spec.motion_model != "dense-flow":
+            # the IWE has the events' and the motion's promoted dtype
+            self._blur = _blur_operators(spec.image_size, promoted, spec, dev)
+            pb = _translation_bounds(spec)
+            self._bounds = tuple(
+                torch.tensor([b[i] for b in pb], dtype=spec.dtype,
+                             device=dev) for i in (0, 1))
+            self.kept.loops.append(FirstOrderLoop(
+                _translation_objective(self.kept.buffers, spec, self._blur),
+                spec.n_iter, spec.method, lr=spec.lr,
+                lr_decay=spec.lr_decay, bounds=self._bounds))
+            return
+        if spec.time_bins > 0:
+            # the kernel route's IWE is float32
+            shape = self.kept.buffers["hists"].shape[-2:]
+            dtype = torch.float32 if spec.use_kernel else promoted
+        else:
+            shape, dtype = spec.image_size, promoted
+        self._blur = _blur_operators(shape, dtype, spec, dev)
+        grids = _grids(spec)
+        self._fine_ops = dense_operators(grids[-1], spec.dtype, dev)
+        for grid, n_it in zip(grids, scale_iterations(spec)):
+            self.kept.loops.append(FirstOrderLoop(
+                self._objective_dense(grid, dev), n_it, spec.method,
+                lr=spec.lr, lr_decay=spec.lr_decay))
+
+    def _bind(self, ev: Events) -> None:
+        if self.kept.bind(_frame_constants(ev, self.spec, self.histograms)):
+            self._build(ev)
+
+    def solve_translation(self, ev: Events,
+                          x0: Optional[torch.Tensor] = None):
+        """:func:`solve_cmax_translation` through this program."""
+        try:
+            self._bind(ev)
+            if x0 is None:
+                x0 = torch.zeros((2,), dtype=self.spec.dtype,
+                                 device=ev.x.device)
+            result = self.kept.loops[0].run(x0)
+        finally:
+            if not self._keep:
+                self.kept.release()
+        return result.param, result
+
+    def solve_dense(self, ev: Events, init: Optional[torch.Tensor] = None):
+        """:func:`solve_cmax_dense` through this program."""
+        spec = self.spec
+        dev = ev.x.device
+        try:
+            self._bind(ev)
+            grids = _grids(spec)
+            params = None
+            histories = []
+            for i, (grid, loop) in enumerate(zip(grids, self.kept.loops)):
+                if i == 0:
+                    x0 = (init if init is not None
+                          else torch.zeros((2,) + grid.shape,
+                                           dtype=spec.dtype, device=dev))
+                else:
+                    x0 = self.kept.resize(params, grid.shape)
+                result = loop.run(x0)
+                params = result.param
+                histories.append(result.history)
+        finally:
+            if not self._keep:
+                self.kept.release()
+        dense_flow = patch_to_dense(params, grids[-1],
+                                    operators=self._fine_ops)
+        return dense_flow, {"params": params, "loss_history": histories}
+
+
+def _program_for(spec: CmaxSpec, program: Optional[CmaxProgram]
+                 ) -> CmaxProgram:
+    if program is None:
+        return CmaxProgram(spec, kept=False)
+    if program.spec != spec:
+        raise ValueError("the CMax program was built for another spec")
+    return program
+
+
+def solve_cmax_translation(ev: Events,
+                           generator: Optional[torch.Generator],
+                           spec: CmaxSpec,
+                           x0: Optional[torch.Tensor] = None, draws=None,
+                           program: Optional[CmaxProgram] = None):
+    """Global 2-DoF CMax fit; returns ``(motion [2], result)``.
+
+    The motion is the *warp* parameter (events displaced by +v need warp
+    −v to sharpen); the flow is its negative.  With ``time_bins > 0`` each
+    bin's histogram shifts by ``dt_b·θ`` through banded matmuls
+    (:func:`shift_image_matrix`, exact for any shift); ``time_bins = 0``
+    warps every event.  The samplers draw inside the bounds box from
+    ``generator`` (or take ``draws``, see :func:`..optim.run_sampler`); the
+    scipy and first-order methods project every iterate onto it.  A
+    first-order method runs through ``program`` (a :class:`CmaxProgram` of
+    ``spec``), or through a program of its own used once.
+    """
+    if spec.method not in SAMPLER_METHODS and \
+            spec.method not in SCIPY_METHODS:
+        return _program_for(spec, program).solve_translation(ev, x0)
+    dev = ev.t.device
+    # the IWE has the events' and the motion's promoted dtype
+    blur = _blur_operators(spec.image_size,
+                           torch.promote_types(ev.x.dtype, spec.dtype), spec,
+                           dev)
+    objective = _translation_objective(
+        _frame_constants(ev, spec, functools.partial(binned_histograms,
+                                                     spec=spec)), spec, blur)
+    pb = _translation_bounds(spec)
     if spec.method in SAMPLER_METHODS:
         result = run_sampler(objective, ([b[0] for b in pb],
                                          [b[1] for b in pb]),
@@ -276,18 +455,14 @@ def solve_cmax_translation(ev: Events,
     hi = torch.tensor([b[1] for b in pb], dtype=spec.dtype, device=dev)
     if x0 is None:
         x0 = torch.zeros((2,), dtype=spec.dtype, device=dev)
-    if spec.method in SCIPY_METHODS:
-        result = run_scipy_method(objective, x0, spec.n_iter, spec.method,
-                                  bounds=(lo, hi))
-    else:
-        result = run_first_order(objective, x0, spec.n_iter, spec.method,
-                                 lr=spec.lr, lr_decay=spec.lr_decay,
-                                 bounds=(lo, hi))
+    result = run_scipy_method(objective, x0, spec.n_iter, spec.method,
+                              bounds=(lo, hi))
     return result.param, result
 
 
 def solve_cmax_dense(ev: Events, generator: Optional[torch.Generator],
-                     spec: CmaxSpec, init: Optional[torch.Tensor] = None):
+                     spec: CmaxSpec, init: Optional[torch.Tensor] = None,
+                     program: Optional[CmaxProgram] = None):
     """Coarse-to-fine dense patch-flow CMax; returns ``(flow [2,H,W], aux)``.
 
     Per scale, a ``[2, gh, gw]`` patch-flow field is interpolated to dense
@@ -295,77 +470,33 @@ def solve_cmax_dense(ev: Events, generator: Optional[torch.Generator],
     smoothness prior; the result, resized, starts the next finer scale.
     Scale i runs ``n_iter // (n_scales − i + 1)`` steps.  With ``time_bins
     > 0`` the objective is the binned one (:func:`binned_iwe`) on the
-    widened ROI box; otherwise the events are warped one by one.
-    ``init`` is the coarsest start (zeros by default).
+    widened ROI box (the box only voted once a frame, in the layout of the
+    stencil kernels on the kernel route); otherwise the events are warped
+    one by one.  ``init`` is the coarsest start (zeros by default).  The
+    solve runs through ``program`` (a :class:`CmaxProgram` of ``spec``),
+    or through a program of its own used once.
     """
-    dev = ev.t.device
-    promoted = torch.promote_types(ev.x.dtype, spec.dtype)
-    if spec.time_bins > 0:
-        crop = _roi_box(spec)
-        # the box only, voted once a frame; the kernel route in the layout
-        # its kernels read (rows that start on 16 bytes)
-        hists, dts = binned_histograms(ev, spec, crop=crop,
-                                       pitched=spec.use_kernel)
-        # the kernel route's IWE is float32
-        blur = _blur_operators(hists.shape[-2:], torch.float32
-                               if spec.use_kernel else promoted, spec, dev)
-    else:
-        ref_time = calculate_reftime(ev, spec.direction)
-        crop = None
-        blur = _blur_operators(spec.image_size, promoted, spec, dev)
-    grids: List[PatchGrid] = []
-    for i in range(spec.n_scales):
-        p = spec.coarsest_patch // (2 ** i)
-        grids.append(PatchGrid(spec.image_size, (p, p), (p, p)))
-    iters = scale_iterations(spec)
-
-    params = None
-    histories = []
-    for i, (grid, n_it) in enumerate(zip(grids, iters)):
-        if i == 0:
-            x0 = (init if init is not None
-                  else torch.zeros((2,) + grid.shape, dtype=spec.dtype,
-                                   device=dev))
-        else:
-            x0 = resize_bilinear(params, grid.shape)
-        ops = dense_operators(grid, spec.dtype, dev, crop=crop)
-
-        def objective(p, _grid=grid, _ops=ops):
-            flow = patch_to_dense(p, _grid, operators=_ops)
-            if spec.time_bins > 0:
-                iwe = binned_iwe(hists, dts, flow, spec, blur)
-            else:
-                warped = warp_event_dense_flow(ev, flow, ref_time,
-                                               normalize_t=True)
-                iwe = _roi_iwe(warped, spec, blur)
-            loss = contrast_loss(iwe, spec)
-            if spec.smoothness:
-                loss = loss + spec.smoothness * costs_mod.image_gradient(
-                    {"flow": flow, "weights": 1.0, "omit_boundary": True})
-            return loss
-
-        result = run_first_order(objective, x0, n_it, spec.method,
-                                 lr=spec.lr, lr_decay=spec.lr_decay)
-        params = result.param
-        histories.append(result.history)
-
-    dense_flow = patch_to_dense(params, grids[-1])
-    return dense_flow, {"params": params, "loss_history": histories}
+    return _program_for(spec, program).solve_dense(ev, init)
 
 
 def estimate_frame_cmax(ev: Events, frame,
                         generator: Optional[torch.Generator],
-                        spec: CmaxSpec, device=None):
+                        spec: CmaxSpec, device=None,
+                        program: Optional[CmaxProgram] = None):
     """Per-frame CMax estimate → dense flow ``[2, H, W]`` (+aux).
 
     Runs on the GPU unless ``device`` asks otherwise; the events are moved
     there.  ``frame`` is accepted and ignored (CMax is events-only), for a
-    signature like the generative solvers'.
+    signature like the generative solvers'.  ``program`` (a
+    :class:`CmaxProgram` of ``spec``) runs a first-order solve through its
+    kept histograms, buffers and loops; without one the solve builds its
+    own, used once.
     """
     dev = resolve_device(device)
     ev = Events(*(a.to(dev) for a in ev))
     if spec.motion_model in ("2d-translation", "rigid-optical-flow"):
-        motion, result = solve_cmax_translation(ev, generator, spec)
+        motion, result = solve_cmax_translation(ev, generator, spec,
+                                                program=program)
         flow = (-motion)[:, None, None].expand(
             (2,) + tuple(spec.image_size))
         aux = {"motion": motion, "loss": result.loss,
@@ -374,5 +505,5 @@ def estimate_frame_cmax(ev: Events, frame,
             aux["host_reads"] = result["host_reads"]
         return flow, aux
     if spec.motion_model == "dense-flow":
-        return solve_cmax_dense(ev, generator, spec)
+        return solve_cmax_dense(ev, generator, spec, program=program)
     raise KeyError(f"motion_model {spec.motion_model!r} not supported")

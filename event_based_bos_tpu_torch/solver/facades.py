@@ -6,6 +6,13 @@ whole-ROI solver (``generative_max_likelihood``), the tiled solvers
 (``patch_eklt_pyramid2``, the serving path) and CMax
 (``contrast_maximization``) over the port's per-frame estimators.  Each
 votes the IWE cache (or CMax's histograms) once a frame on the card.
+
+Each facade keeps its programs per event capacity in ``self._programs``,
+as the JAX package's facades keep one jitted solve per capacity: on the
+card a capacity's first frame captures its program (the IWE cache or
+CMax's histograms, and each loop's step) and every later frame copies its
+inputs into the program's buffers and replays.  The host-driven methods
+(the samplers, the scipy names, TPE) keep no program.
 """
 
 from __future__ import annotations
@@ -16,12 +23,16 @@ import logging
 import numpy as np
 import torch
 
+from ..optim import FIRST_ORDER_METHODS
+from ..types import Events
 from .api import EstimationHandle, SolverBase, fetch_later
-from .cmax import CmaxSpec, estimate_frame_cmax
+from .cmax import CmaxProgram, CmaxSpec, estimate_frame_cmax
 from .generative import (GenerativeSpec, initialize_params, iwe_cache,
-                         iwe_cache_from_votes)
-from .gml import GmlSpec, estimate_frame_gml, make_host_tpe_solver
-from .patch import PatchSpec, estimate_frame_dependent, estimate_frame_patch
+                         iwe_cache_from_votes, iwe_cache_program)
+from .gml import (GmlProgram, GmlSpec, estimate_frame_gml,
+                  make_host_tpe_solver)
+from .patch import (PatchProgram, PatchSpec, estimate_frame_dependent,
+                    estimate_frame_patch)
 from .pyramid import (PyramidSpec, SolveProgram, estimate_frame,
                       pyramid_grids, roi_mask, update_coarse_from_fine)
 
@@ -29,6 +40,19 @@ logger = logging.getLogger(__name__)
 
 __all__ = ["GenerativeMaximumLikelihood", "PatchEklt", "PatchEkltDependent",
            "PatchEkltPyramid2", "ContrastMaximization", "collections"]
+
+
+def _kept(programs: dict, key, make, n_iter: int):
+    """The program under ``key`` in ``programs``, made by ``make()`` (and
+    logged) at its capacity's first frame."""
+    if key not in programs:
+        capacity = key[0] if isinstance(key, tuple) else key
+        logger.info(
+            "Capturing the solve program for event capacity %d (%d "
+            "iterations) — its first frame includes the capture; later "
+            "frames replay it.", capacity, n_iter)
+        programs[key] = make()
+    return programs[key]
 
 
 def _evolution_stride(solver_config, n_iter: int) -> int:
@@ -106,6 +130,15 @@ class GenerativeMaximumLikelihood(SolverBase):
             record_evolution=_evolution_stride(self.slv_config, n_iter))
         self._tpe_solver = (make_host_tpe_solver(self.spec, self.device)
                             if method == "TPE" else None)
+        self._programs = {}
+
+    def _program(self, capacity: int):
+        """The kept program of event capacity ``capacity`` (first-order
+        methods; None for the host-driven ones)."""
+        if self.spec.method not in FIRST_ORDER_METHODS:
+            return None
+        return _kept(self._programs, capacity,
+                     lambda: GmlProgram(self.spec), self.spec.n_iter)
 
     def estimate_async(self, events, *args, **kwargs) -> EstimationHandle:
         """Queue the IWE cache and the solve (the TPE study runs here, on
@@ -119,8 +152,9 @@ class GenerativeMaximumLikelihood(SolverBase):
                                      device=self.device))
             flow, aux = self._tpe_solver(ev, frame, seed)
         else:
-            flow, aux = estimate_frame_gml(ev, frame, self._generator,
-                                           self.spec, device=self.device)
+            flow, aux = estimate_frame_gml(
+                ev, frame, self._generator, self.spec, device=self.device,
+                program=self._program(ev.capacity))
         fetch = fetch_later([flow, aux["history"]])
 
         def finalize() -> np.ndarray:
@@ -151,6 +185,8 @@ class PatchEklt(SolverBase):
     all patches in one batch (``optimizer.method`` a first-order name; the
     learning rate is the solver's own, 0.01)."""
 
+    JOINT = False  # the kind of its programs
+
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         opt = self.slv_config.get("optimizer", {})
@@ -170,10 +206,18 @@ class PatchEklt(SolverBase):
                                               False)),
             event_thres=int(pe.get("event_thres", 8)),
         )
+        self._programs = {}
+
+    def _program(self, capacity: int) -> PatchProgram:
+        """The kept program of event capacity ``capacity``."""
+        return _kept(self._programs, capacity,
+                     lambda: PatchProgram(self.spec, joint=self.JOINT),
+                     self.spec.n_iter)
 
     def _solve(self, ev, frame):
         return estimate_frame_patch(ev, frame, self._generator, self.spec,
-                                    device=self.device)
+                                    device=self.device,
+                                    program=self._program(ev.capacity))
 
     def estimate_async(self, events, *args, **kwargs) -> EstimationHandle:
         ev = self._to_events(events)
@@ -193,9 +237,12 @@ class PatchEkltDependent(PatchEklt):
     learning rate 0.05; the poisson model's init is drawn from the
     facade's generator."""
 
+    JOINT = True
+
     def _solve(self, ev, frame):
         return estimate_frame_dependent(ev, frame, self._generator,
-                                        self.spec, device=self.device)
+                                        self.spec, device=self.device,
+                                        program=self._program(ev.capacity))
 
 
 class PatchEkltPyramid2(SolverBase):
@@ -226,9 +273,11 @@ class PatchEkltPyramid2(SolverBase):
     The facade keeps one :class:`~.pyramid.SolveProgram` per event capacity
     and schedule (the full ``n_iter``, and ``steady_n_iter`` for the warm
     frames when it is set), as the JAX package keeps one jitted solve per
-    pair: on the card its first frame captures each scale's step and later
-    frames replay them.  :meth:`prewarm` captures them ahead of the first
-    frame.
+    pair, and one IWE-cache program per capacity
+    (:func:`~.generative.iwe_cache_program`, the JAX package's
+    ``_cache_fn``): on the card a capacity's first frame captures the cache
+    and each scale's step, and later frames replay them.  :meth:`prewarm`
+    captures them ahead of the first frame.
     """
 
     SUPPORTS_FLOW_FETCH_DTYPE = True
@@ -304,31 +353,38 @@ class PatchEkltPyramid2(SolverBase):
         self._flow_fetch_box = ((x0, x1, y0, y1)
                                 if (x1 - x0) * (y1 - y0) < h * w else None)
         self._programs = {}
+        self._cache_programs = {}
 
     def _program(self, capacity: int, steady: bool = False) -> SolveProgram:
         """The solve program of event capacity ``capacity`` for the full
         schedule or (``steady``) the warm frames' ``steady_n_iter``."""
-        key = (capacity, steady)
-        if key not in self._programs:
-            spec = self.spec_steady if steady else self.spec
-            logger.info(
-                "Capturing the solve program for event capacity %d (%d "
-                "iterations) — its first frame includes the capture; later "
-                "frames replay it.", capacity, spec.n_iter)
-            self._programs[key] = SolveProgram(spec)
-        return self._programs[key]
+        spec = self.spec_steady if steady else self.spec
+        return _kept(self._programs, (capacity, steady),
+                     lambda: SolveProgram(spec), spec.n_iter)
+
+    def _cache_program(self, capacity: int):
+        """The IWE-cache program of event capacity ``capacity``."""
+        if capacity not in self._cache_programs:
+            self._cache_programs[capacity] = iwe_cache_program(self.gen)
+        return self._cache_programs[capacity]
 
     def prewarm(self, capacity: int) -> None:
-        """Build the kernels and capture the solve program of ``capacity``
-        ahead of the first frame, as the JAX package compiles and
-        dispatches its solve on an all-invalid dummy batch: one solve on
-        that batch's (all-zero) IWE cache from a start drawn from a
-        generator of its own, so the solver's generator, and every real
-        frame's output, are unchanged.  With ``steady_n_iter`` the warm
-        frames' program is captured too, from the dummy solve's feedback."""
+        """Build the kernels and capture the IWE-cache and solve programs
+        of ``capacity`` ahead of the first frame, as the JAX package
+        compiles and dispatches its programs on an all-invalid dummy batch:
+        the cache of such a batch (one vote), and one solve on an all-zero
+        IWE cache from a start drawn from a generator of its own, so the
+        solver's generator, and every real frame's output, are unchanged.
+        With ``steady_n_iter`` the warm frames' program is captured too,
+        from the dummy solve's feedback."""
         super().prewarm(capacity)
         dev = self.device
         size = tuple(self.orig_image_shape)
+        zeros = torch.zeros((capacity,), dtype=self.dtype, device=dev)
+        iwe_cache(Events(zeros, zeros, zeros, zeros,
+                         torch.zeros((capacity,), dtype=torch.bool,
+                                     device=dev)),
+                  self.gen, self._cache_program(capacity))
         cache = iwe_cache_from_votes(
             torch.zeros((2,) + size, dtype=self.dtype, device=dev), self.gen)
         frame = torch.zeros(size, dtype=self.dtype, device=dev)
@@ -356,7 +412,7 @@ class PatchEkltPyramid2(SolverBase):
         prev = self.previous_frame_best_estimation
         steady = self.spec_steady is not None and prev is not None
         used_spec = self.spec_steady if steady else self.spec
-        cache = iwe_cache(ev, self.gen)
+        cache = iwe_cache(ev, self.gen, self._cache_program(ev.capacity))
         flow, aux = estimate_frame(None, frame, self._mask, self._generator,
                                    used_spec, prev_params=prev, cache=cache,
                                    device=self.device,
@@ -434,11 +490,23 @@ class ContrastMaximization(SolverBase):
             param_bounds=bounds,
             dtype=self.dtype,
         )
+        self._programs = {}
+
+    def _program(self, capacity: int):
+        """The kept program of event capacity ``capacity``: the dense
+        model, or the translation with a first-order method (None for the
+        host-driven ones)."""
+        if (self.spec.motion_model != "dense-flow"
+                and self.spec.method not in FIRST_ORDER_METHODS):
+            return None
+        return _kept(self._programs, capacity,
+                     lambda: CmaxProgram(self.spec), self.spec.n_iter)
 
     def estimate_async(self, events, *args, **kwargs) -> EstimationHandle:
         ev = self._to_events(events)
         flow, aux = estimate_frame_cmax(ev, None, self._generator, self.spec,
-                                        device=self.device)
+                                        device=self.device,
+                                        program=self._program(ev.capacity))
         fetch = fetch_later([flow])
 
         def finalize() -> np.ndarray:

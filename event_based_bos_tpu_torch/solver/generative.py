@@ -4,7 +4,8 @@ PyTorch counterpart of the JAX package's ``solver/generative.py``:
 
   * :func:`iwe_cache` — the per-frame signed histogram and weight maps; its
     vote is the CUDA kernel of :mod:`event_based_bos_tpu_torch.ops.iwe_cuda`
-    on a GPU tensor (the kernel's plain version on a CPU tensor);
+    on a GPU tensor (the kernel's plain version on a CPU tensor); kept as a
+    captured program per event capacity by :func:`iwe_cache_program`;
   * :func:`measured_increment` — the normalized measurement;
   * :func:`patch_to_dense` — patch grid → dense interpolation as two
     matmuls, with the operators built once per scale (:func:`dense_operators`)
@@ -29,6 +30,7 @@ bfloat16.  The resize matmuls stay ``torch.matmul`` in that dtype.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -36,6 +38,7 @@ import torch
 
 from .. import costs as costs_mod
 from ..device import resolve_device
+from ..graphs import CapturedProgram
 from ..numerics import abs_
 from ..ops.gradients import frame_gradients, poisson_to_flow
 from ..ops.image_warp import (_resize_matrix_np, warp_image_forward,
@@ -47,7 +50,7 @@ from ..ops.iwe_cuda import (bilinear_vote_cuda, polarity_iwe_cuda,
 from ..types import Events, PatchGrid
 
 __all__ = ["GenerativeSpec", "polarity_votes", "iwe_cache_from_votes",
-           "iwe_cache", "frame_constants", "measured_increment",
+           "iwe_cache", "iwe_cache_program", "frame_constants", "measured_increment",
            "dense_operators", "patch_to_dense",
            "patch_to_dense_indexed", "outside_norm_sq", "patch_flow_of",
            "params_to_fields", "predict_increment", "dense_objective",
@@ -175,14 +178,24 @@ def iwe_cache_from_votes(pol: torch.Tensor, spec: GenerativeSpec):
     return hist_s, weights, weight_inverse
 
 
-def iwe_cache(ev: Events, spec: GenerativeSpec):
+def iwe_cache(ev: Events, spec: GenerativeSpec,
+              program: Optional[CapturedProgram] = None):
     """Per-frame event-histogram cache ``(histogram, weights|None,
     weight_inverse)``.
 
     The signed (or, with ``no_polarity``, unsigned) vote runs on the CUDA
     kernel for GPU tensors: the cache is a once-per-frame constant, and
-    events reach the solve only through it.
+    events reach the solve only through it.  ``program`` (an
+    :func:`iwe_cache_program` of ``spec``) computes it through that kept
+    program: on the card captured at its first call per event capacity and
+    replayed after (the same numbers).
     """
+    if program is not None:
+        return program(ev)
+    return _iwe_cache(ev, spec)
+
+
+def _iwe_cache(ev: Events, spec: GenerativeSpec):
     if spec.no_polarity:
         hist = bilinear_vote_cuda(ev, spec.image_size)
     else:
@@ -192,15 +205,24 @@ def iwe_cache(ev: Events, spec: GenerativeSpec):
                                 spec)
 
 
-def frame_constants(ev: Events, frame, spec: GenerativeSpec, device):
+def iwe_cache_program(spec: GenerativeSpec) -> CapturedProgram:
+    """The IWE cache of ``spec`` as a kept program (the vote, the blur and
+    the weight maps), captured per event capacity: the counterpart of the
+    JAX package's jitted ``iwe_cache`` (its facades' ``_cache_fn``)."""
+    return CapturedProgram(functools.partial(_iwe_cache, spec=spec))
+
+
+def frame_constants(ev: Events, frame, spec: GenerativeSpec, device,
+                    cache_program: Optional[CapturedProgram] = None):
     """A frame's constants of the generative solvers on ``device``: the
     events moved there, the frame's gradients and the IWE cache (one
-    vote).  Returns ``(ev, gx, gy, histogram, weights, weight_inverse)``."""
+    vote; through ``cache_program`` when given, see :func:`iwe_cache`).
+    Returns ``(ev, gx, gy, histogram, weights, weight_inverse)``."""
     frame = torch.as_tensor(frame).to(device=device, dtype=spec.dtype)
     gx, gy = frame_gradients(frame, ksize=spec.sobel_ksize,
                              use_log_intensity=spec.use_log_intensity)
     ev = Events(*(a.to(device) for a in ev))
-    return (ev, gx, gy) + tuple(iwe_cache(ev, spec))
+    return (ev, gx, gy) + tuple(iwe_cache(ev, spec, cache_program))
 
 
 def measured_increment(histogram: torch.Tensor,

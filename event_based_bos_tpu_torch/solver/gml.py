@@ -4,7 +4,8 @@ PyTorch counterpart of the JAX package's ``solver/gml.py``: one patch
 covering the ROI, parameters ``[angle | vx, vy]`` (+ the global pattern
 shift), fitted by
 
-  * the torch-optimizer names → :func:`..optim.run_first_order`,
+  * the torch-optimizer names → a :class:`GmlProgram` (its loop kept from
+    frame to frame by the facade),
   * the scipy names → :func:`..optim.run_scipy_method` (L-BFGS,
     Nelder-Mead or Newton-CG by family),
   * the samplers → :func:`..optim.run_sampler` (random, grid, and the
@@ -24,14 +25,16 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..graphs import KeptSolve
 from ..optim import (FIRST_ORDER_METHODS, SAMPLER_METHODS, SCIPY_METHODS,
-                     run_first_order, run_sampler, run_scipy_method)
+                     FirstOrderLoop, run_sampler, run_scipy_method)
 from ..types import Events
 from .generative import (GenerativeSpec, frame_constants,
-                         measured_increment, scalar_objective,
-                         unfold_scalar_params)
+                         iwe_cache_program, measured_increment,
+                         scalar_objective, unfold_scalar_params)
 
-__all__ = ["GmlSpec", "initialize_theta", "solve_gml", "estimate_frame_gml",
+__all__ = ["GmlSpec", "initialize_theta", "GmlProgram", "solve_gml",
+           "estimate_frame_gml",
            "make_host_objective", "make_host_tpe_solver"]
 
 
@@ -103,28 +106,86 @@ def _roi_constants(histogram, weights, spec: GmlSpec):
     return measured, weights_roi
 
 
+def _frame_constants(histogram, weights, weight_inverse, gx, gy,
+                     spec: GmlSpec):
+    """The objective's constants of one frame."""
+    measured, weights_roi = _roi_constants(histogram, weights, spec)
+    return {"measured": measured, "weights_roi": weights_roi, "gx": gx,
+            "gy": gy, "weight_inverse": weight_inverse}
+
+
+def _objective(consts, spec: GmlSpec):
+    """The scalar objective of θ over a frame's constants."""
+    def objective(theta):
+        loss, _terms = scalar_objective(
+            theta, consts["measured"], consts["gx"], consts["gy"],
+            consts["weight_inverse"], spec.roi, spec.gen,
+            weights_roi=consts["weights_roi"])
+        return loss
+
+    return objective
+
+
+class GmlProgram:
+    """The whole-ROI solve of a first-order method for one spec, kept from
+    frame to frame: the counterpart of the JAX package's jitted
+    ``estimate_frame_gml``.
+
+    Its IWE cache is a kept program (:func:`..generative.iwe_cache_program`,
+    captured per event capacity), and a
+    :class:`~event_based_bos_tpu_torch.graphs.KeptSolve` holds the frame's
+    measurement, event-hist weights, gradients and inverse-event weights in
+    buffers of its own with the loop over them, whose step is captured at
+    the first solve and replayed after.  ``kept=False`` is a program used
+    once (the per-call route): the cache runs op by op and the loop's graph
+    is dropped after the solve.  Outputs are copies.
+    """
+
+    def __init__(self, spec: GmlSpec, kept: bool = True):
+        if spec.method not in FIRST_ORDER_METHODS:
+            raise KeyError(f"a GML program runs the first-order methods, "
+                           f"not {spec.method!r}")
+        self.spec = spec
+        self.kept = KeptSolve()
+        self._keep = kept
+        self.cache = iwe_cache_program(spec.gen) if kept else None
+
+    def solve(self, histogram, weights, weight_inverse, gx, gy, x0):
+        """:func:`solve_gml` of a first-order method through this program."""
+        spec = self.spec
+        try:
+            if self.kept.bind(_frame_constants(histogram, weights,
+                                               weight_inverse, gx, gy,
+                                               spec)):
+                self.kept.loops.append(FirstOrderLoop(
+                    _objective(self.kept.buffers, spec), spec.n_iter,
+                    spec.method, lr=spec.lr, lr_decay=spec.lr_decay,
+                    track_best=spec.track_best,
+                    record_every=spec.record_evolution))
+            result = self.kept.loops[0].run(x0)
+        finally:
+            if not self._keep:
+                self.kept.release()
+        return result.param, result
+
+
 def solve_gml(histogram: torch.Tensor, weights: Optional[torch.Tensor],
               weight_inverse: torch.Tensor, gx: torch.Tensor,
               gy: torch.Tensor, generator: Optional[torch.Generator],
               spec: GmlSpec, x0: Optional[torch.Tensor] = None,
-              draws=None):
+              draws=None, program: Optional[GmlProgram] = None):
     """Fit the scalar parameters; returns ``(theta, result)``.
 
     ``generator`` draws the poisson init (unless ``x0`` pins it) or the
     sampler's trials (unless ``draws`` gives them, see
-    :func:`..optim.run_sampler`).
+    :func:`..optim.run_sampler`).  A first-order method runs through
+    ``program`` (a :class:`GmlProgram` of ``spec``), or through a program
+    of its own used once.
     """
-    gen = spec.gen
     dev = histogram.device
-    measured, weights_roi = _roi_constants(histogram, weights, spec)
-
-    def objective(theta):
-        loss, _terms = scalar_objective(theta, measured, gx, gy,
-                                        weight_inverse, spec.roi, gen,
-                                        weights_roi=weights_roi)
-        return loss
-
     if spec.method in SAMPLER_METHODS:
+        objective = _objective(_frame_constants(
+            histogram, weights, weight_inverse, gx, gy, spec), spec)
         lo = [b[0] for b in spec.param_bounds]
         hi = [b[1] for b in spec.param_bounds]
         result = run_sampler(objective, (lo, hi), spec.n_iter, spec.method,
@@ -133,15 +194,17 @@ def solve_gml(histogram: torch.Tensor, weights: Optional[torch.Tensor],
     if x0 is None:
         x0 = initialize_theta(generator, spec, dev)
     if spec.method in FIRST_ORDER_METHODS:
-        result = run_first_order(objective, x0, spec.n_iter, spec.method,
-                                 lr=spec.lr, lr_decay=spec.lr_decay,
-                                 track_best=spec.track_best,
-                                 record_every=spec.record_evolution)
-    elif spec.method in SCIPY_METHODS:
+        if program is None:
+            program = GmlProgram(spec, kept=False)
+        elif program.spec != spec:
+            raise ValueError("the GML program was built for another spec")
+        return program.solve(histogram, weights, weight_inverse, gx, gy, x0)
+    if spec.method in SCIPY_METHODS:
+        objective = _objective(_frame_constants(
+            histogram, weights, weight_inverse, gx, gy, spec), spec)
         result = run_scipy_method(objective, x0, spec.n_iter, spec.method)
-    else:
-        raise KeyError(f"Unknown optimizer method {spec.method!r}")
-    return result.param, result
+        return result.param, result
+    raise KeyError(f"Unknown optimizer method {spec.method!r}")
 
 
 def _constant_flow(theta: torch.Tensor, gen: GenerativeSpec):
@@ -151,23 +214,28 @@ def _constant_flow(theta: torch.Tensor, gen: GenerativeSpec):
 
 
 def estimate_frame_gml(ev: Events, frame, generator: Optional[torch.Generator],
-                       spec: GmlSpec, x0=None, draws=None, device=None):
+                       spec: GmlSpec, x0=None, draws=None, device=None,
+                       program: Optional[GmlProgram] = None):
     """Whole per-frame GML solve → constant flow ``[2, H, W]`` (+aux).
 
     Runs on the GPU unless ``device`` asks otherwise; the events, the frame
     and ``x0`` are moved there.  The fitted (vx, vy) is broadcast over the
     image (a view).  ``aux``: ``theta``, ``loss``, ``history``, with
     ``spec.record_evolution`` ``theta_history``, and with L-BFGS the line
-    search's ``host_reads``.
+    search's ``host_reads``.  ``program`` (a :class:`GmlProgram` of
+    ``spec``, first-order methods) runs the IWE cache and the solve through
+    its kept programs; without one a first-order solve builds its own,
+    used once.
     """
     dev = resolve_device(device)
     gen = spec.gen
-    _ev, gx, gy, hist, weights, weight_inverse = frame_constants(ev, frame,
-                                                                 gen, dev)
+    _ev, gx, gy, hist, weights, weight_inverse = frame_constants(
+        ev, frame, gen, dev, None if program is None else program.cache)
     if x0 is not None:
         x0 = torch.as_tensor(x0).to(device=dev, dtype=gen.dtype)
     theta, result = solve_gml(hist, weights, weight_inverse, gx, gy,
-                              generator, spec, x0=x0, draws=draws)
+                              generator, spec, x0=x0, draws=draws,
+                              program=program)
     aux = {"theta": theta, "loss": result.loss, "history": result.history}
     if spec.record_evolution > 0 and result.get("params_history") is not None:
         aux["theta_history"] = result["params_history"]
@@ -190,16 +258,14 @@ def make_host_objective(spec: GmlSpec, device=None):
     def obj_for(ev: Events, frame):
         _ev, gx, gy, hist, weights, weight_inverse = frame_constants(
             ev, frame, gen, dev)
-        measured, weights_roi = _roi_constants(hist, weights, spec)
+        on_device = _objective(_frame_constants(hist, weights, weight_inverse,
+                                                gx, gy, spec), spec)
 
         def objective(x: np.ndarray) -> float:
             theta = torch.as_tensor(np.asarray(x)).to(device=dev,
                                                       dtype=gen.dtype)
             with torch.no_grad():
-                loss, _terms = scalar_objective(
-                    theta, measured, gx, gy, weight_inverse, spec.roi, gen,
-                    weights_roi=weights_roi)
-            return float(loss)
+                return float(on_device(theta))
 
         return objective
 

@@ -8,13 +8,13 @@ PyTorch counterpart of the JAX package's ``solver/patch.py``:
     are optimized at once as one ``[n_patch, d]`` batch: the per-patch
     objective is ``torch.func.vmap``-ed, the gradient of the summed losses
     is each patch's own gradient, and the best iterate is tracked per
-    patch (:func:`..optim.run_first_order` with a vector loss).
+    patch (a :class:`..optim.FirstOrderLoop` with a vector loss).
   * **Joint** — all patch parameters form one ``[n_dim, gh, gw]`` field
     optimized against the full-image objective cropped to the ROI; inactive
     patches (outside the ROI or under the event threshold) are masked.
 
 Both vote the IWE cache once a frame (one launch of the vote kernel on the
-card).
+card).  A :class:`PatchProgram` keeps either solve from frame to frame.
 """
 
 from __future__ import annotations
@@ -26,18 +26,19 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..graphs import KeptSolve
 from ..numerics import abs_
 from ..ops.gradients import poisson_to_flow
 from ..ops.image_warp import warp_image_shift
-from ..optim import run_first_order
+from ..optim import FirstOrderLoop
 from ..types import Events, PatchGrid
 from .generative import (NORM_EPS, GenerativeSpec, _safe_frobenius,
                          dense_operators, frame_constants, initialize_params,
-                         measured_increment, patch_to_dense,
-                         predict_increment)
+                         iwe_cache_program, measured_increment,
+                         patch_to_dense, predict_increment)
 
 __all__ = ["PatchSpec", "extract_patches", "patch_event_counts",
-           "active_patch_mask", "solve_patches_independent",
+           "active_patch_mask", "PatchProgram", "solve_patches_independent",
            "joint_objective", "solve_patches_joint", "estimate_frame_patch",
            "estimate_frame_dependent"]
 
@@ -160,17 +161,13 @@ def _patch_objective(theta, measured_p, gx_p, gy_p, wi_p, w_p,
     return loss
 
 
-def solve_patches_independent(histogram: torch.Tensor,
-                              weights: Optional[torch.Tensor],
-                              weight_inverse: torch.Tensor, gx: torch.Tensor,
-                              gy: torch.Tensor, active: torch.Tensor,
-                              spec: PatchSpec):
-    """All patches at once → the masked ``[2, gh, gw]`` patch flow, plus
-    each patch's best loss ``[gh, gw]`` and parameters ``[n_patch, d]``."""
-    gen = spec.gen
+def _patch_constants(histogram, weights, weight_inverse, gx, gy,
+                     spec: PatchSpec):
+    """Every patch window of the frame's constants, cut once: the
+    normalized measurement, the gradients, the inverse-event weights and
+    the event-hist weights (None without them), ``[n_patch, ph, pw]``."""
     grid = spec.grid
-    gh, gw = grid.shape
-    n = gh * gw
+    n = grid.shape[0] * grid.shape[1]
 
     def norm(p):
         p = p.reshape(n, -1)
@@ -182,51 +179,172 @@ def solve_patches_independent(histogram: torch.Tensor,
         w_p = extract_patches(weights, grid)
         hist_p = w_p * hist_p
     measured_p = hist_p / torch.clamp(norm(hist_p), min=1e-30)[:, None, None]
-    gx_p = extract_patches(gx, grid)
-    gy_p = extract_patches(gy, grid)
-    wi_p = extract_patches(weight_inverse, grid)
+    return {"measured_p": measured_p, "gx_p": extract_patches(gx, grid),
+            "gy_p": extract_patches(gy, grid),
+            "wi_p": extract_patches(weight_inverse, grid), "w_p": w_p}
 
-    dim = (1 if gen.angle_model else 2) + (2 if gen.optimize_warp else 0)
-    x0 = torch.zeros((n, dim), dtype=gen.dtype, device=histogram.device)
-    if gen.angle_model:
-        x0[:, 0] = torch.pi
 
-    def one(theta, m, a, b, wi, w):
-        return _patch_objective(theta, m, a, b, wi, w, spec)
+class PatchProgram:
+    """The tiled solve for one spec, kept from frame to frame: the
+    counterpart of the JAX package's jitted ``estimate_frame_patch``
+    (independent) or ``estimate_frame_dependent`` (``joint``).
 
-    batched = torch.func.vmap(one, in_dims=(0, 0, 0, 0, 0,
-                                            None if w_p is None else 0))
+    Its IWE cache is a kept program (:func:`..generative.iwe_cache_program`,
+    captured per event capacity), and a
+    :class:`~event_based_bos_tpu_torch.graphs.KeptSolve` holds the frame's
+    constants in buffers of its own with the loop over them: the patch
+    windows and the active mask of the independent solve (its vmapped
+    objective over every patch), or the measurement, gradients, weights
+    and patch mask of the joint one (with the grid's interpolation
+    operators).  On the card the loop's step is captured at the first solve
+    and replayed after.  ``kept=False`` is a program used once (the
+    per-call route): the cache runs op by op and the loop's graph is
+    dropped after the solve.  Outputs are copies.
+    """
 
-    def objective(thetas):
-        return batched(thetas, measured_p, gx_p, gy_p, wi_p, w_p)
+    def __init__(self, spec: PatchSpec, joint: bool, kept: bool = True):
+        self.spec = spec
+        self.joint = joint
+        self.kept = KeptSolve()
+        self._keep = kept
+        self._lr = None
+        self._ops = None
+        self.cache = iwe_cache_program(spec.gen) if kept else None
 
-    res = run_first_order(objective, x0, spec.n_iter, spec.method,
-                          lr=spec.lr, lr_decay=spec.lr_decay,
-                          track_best=spec.track_best)
-    thetas = res.param
-    if gen.angle_model:
-        u, v = torch.sin(thetas[:, 0]), torch.cos(thetas[:, 0])
-    else:
-        u, v = thetas[:, 0], thetas[:, 1]
-    patched = torch.stack([u, v]).reshape(2, gh, gw) * active[None]
-    return patched, {"losses": res.loss.reshape(gh, gw), "thetas": thetas}
+    def _build_independent(self) -> None:
+        spec = self.spec
+        bufs = self.kept.buffers
+
+        def one(theta, m, a, b, wi, w):
+            return _patch_objective(theta, m, a, b, wi, w, spec)
+
+        batched = torch.func.vmap(one, in_dims=(
+            0, 0, 0, 0, 0, None if bufs["w_p"] is None else 0))
+
+        def objective(thetas):
+            return batched(thetas, bufs["measured_p"], bufs["gx_p"],
+                           bufs["gy_p"], bufs["wi_p"], bufs["w_p"])
+
+        self.kept.loops.append(FirstOrderLoop(
+            objective, spec.n_iter, spec.method, lr=spec.lr,
+            lr_decay=spec.lr_decay, track_best=spec.track_best))
+
+    def _build_joint(self, lr, device) -> None:
+        spec = self.spec
+        gen = spec.gen
+        bufs = self.kept.buffers
+        grid = spec.grid
+        ops = self._ops = dense_operators(grid, gen.dtype, device)
+
+        def objective(p):
+            loss, _ = joint_objective(p, bufs["patch_mask"],
+                                      bufs["measured"], bufs["gx"],
+                                      bufs["gy"], bufs["weight_inverse"],
+                                      grid, gen, spec.roi,
+                                      weights=bufs["weights"], operators=ops)
+            return loss
+
+        self.kept.loops.append(FirstOrderLoop(
+            objective, spec.n_iter, spec.method, lr=lr,
+            lr_decay=spec.lr_decay, track_best=spec.track_best))
+        self._lr = lr
+
+    def solve_independent(self, histogram, weights, weight_inverse, gx, gy,
+                          active):
+        """:func:`solve_patches_independent` through this program."""
+        spec = self.spec
+        gen = spec.gen
+        gh, gw = spec.grid.shape
+        consts = _patch_constants(histogram, weights, weight_inverse, gx, gy,
+                                  spec)
+        dim = (1 if gen.angle_model else 2) + (2 if gen.optimize_warp else 0)
+        x0 = torch.zeros((gh * gw, dim), dtype=gen.dtype,
+                         device=histogram.device)
+        if gen.angle_model:
+            x0[:, 0] = torch.pi
+        try:
+            if self.kept.bind(consts):
+                self._build_independent()
+            res = self.kept.loops[0].run(x0)
+        finally:
+            if not self._keep:
+                self.kept.release()
+        thetas = res.param
+        if gen.angle_model:
+            u, v = torch.sin(thetas[:, 0]), torch.cos(thetas[:, 0])
+        else:
+            u, v = thetas[:, 0], thetas[:, 1]
+        patched = torch.stack([u, v]).reshape(2, gh, gw) * active[None]
+        return patched, {"losses": res.loss.reshape(gh, gw),
+                         "thetas": thetas}
+
+    def solve_joint(self, histogram, weights, weight_inverse, gx, gy,
+                    patch_mask, x0, lr):
+        """:func:`solve_patches_joint` through this program."""
+        spec = self.spec
+        consts = {"measured": measured_increment(histogram, weights,
+                                                 roi=spec.roi),
+                  "gx": gx, "gy": gy, "weight_inverse": weight_inverse,
+                  "weights": weights, "patch_mask": patch_mask}
+        try:
+            if self.kept.bind(consts):
+                self._build_joint(lr, histogram.device)
+            elif torch.is_tensor(lr) or lr != self._lr:
+                self.kept.loops[0].set_learning_rate(lr)
+                self._lr = lr
+            result = self.kept.loops[0].run(x0)
+        finally:
+            if not self._keep:
+                self.kept.release()
+        params = result.param
+        patch_flow, _ = _masked_patch_flow(params, patch_mask, spec.gen)
+        dense = patch_to_dense(patch_flow, spec.grid, operators=self._ops)
+        return dense, {"params": params, "history": result.history,
+                       "loss": result.loss}
+
+
+def _program_for(spec: PatchSpec, joint: bool,
+                 program: Optional[PatchProgram]) -> PatchProgram:
+    if program is None:
+        return PatchProgram(spec, joint, kept=False)
+    if program.spec != spec or program.joint != joint:
+        raise ValueError("the patch program was built for another solve")
+    return program
+
+
+def solve_patches_independent(histogram: torch.Tensor,
+                              weights: Optional[torch.Tensor],
+                              weight_inverse: torch.Tensor, gx: torch.Tensor,
+                              gy: torch.Tensor, active: torch.Tensor,
+                              spec: PatchSpec,
+                              program: Optional[PatchProgram] = None):
+    """All patches at once → the masked ``[2, gh, gw]`` patch flow, plus
+    each patch's best loss ``[gh, gw]`` and parameters ``[n_patch, d]``;
+    through ``program`` (an independent :class:`PatchProgram` of ``spec``)
+    or a program of its own used once."""
+    return _program_for(spec, False, program).solve_independent(
+        histogram, weights, weight_inverse, gx, gy, active)
 
 
 def estimate_frame_patch(ev: Events, frame,
                          generator: Optional[torch.Generator],
-                         spec: PatchSpec, device=None):
+                         spec: PatchSpec, device=None,
+                         program: Optional[PatchProgram] = None):
     """Per-frame independent tiled solve → dense flow ``[2, H, W]`` (+aux).
 
     Runs on the GPU unless ``device`` asks otherwise.  Draws nothing:
     every patch starts at 0 (angle model: π); ``generator`` is accepted for
-    a signature like the other estimators'.
+    a signature like the other estimators'.  ``program`` (an independent
+    :class:`PatchProgram` of ``spec``) runs the IWE cache and the solve
+    through its kept programs; without one the solve builds its own, used
+    once.
     """
     dev = resolve_device(device)
     ev, gx, gy, hist, weights, weight_inverse = frame_constants(
-        ev, frame, spec.gen, dev)
+        ev, frame, spec.gen, dev, None if program is None else program.cache)
     active = active_patch_mask(ev, spec)
     patched, aux = solve_patches_independent(hist, weights, weight_inverse,
-                                             gx, gy, active, spec)
+                                             gx, gy, active, spec, program)
     return patch_to_dense(patched, spec.grid), aux
 
 
@@ -288,47 +406,38 @@ def solve_patches_joint(histogram: torch.Tensor,
                         gy: torch.Tensor, patch_mask: torch.Tensor,
                         generator: Optional[torch.Generator],
                         spec: PatchSpec, lr: float = 0.05,
-                        init_params: Optional[torch.Tensor] = None):
+                        init_params: Optional[torch.Tensor] = None,
+                        program: Optional[PatchProgram] = None):
     """One joint optimization over the whole ``[n_dim, gh, gw]`` field, at
     learning rate ``lr`` (0.05, the reference's; not ``spec.lr``).  The
     poisson init is drawn from ``generator`` unless ``init_params`` pins
     it.  Returns the dense flow ``[2, H, W]`` and ``{params, history,
-    loss}``."""
+    loss}``.  The solve runs through ``program`` (a joint
+    :class:`PatchProgram` of ``spec``), or through a program of its own
+    used once."""
     gen = spec.gen
-    grid = spec.grid
     dev = histogram.device
-    measured = measured_increment(histogram, weights, roi=spec.roi)
-    ops = dense_operators(grid, gen.dtype, dev)
-    x0 = (initialize_params(generator, grid.shape, gen, dev)
+    program = _program_for(spec, True, program)
+    x0 = (initialize_params(generator, spec.grid.shape, gen, dev)
           if init_params is None
           else torch.as_tensor(init_params).to(device=dev, dtype=gen.dtype))
-
-    def objective(p):
-        loss, _ = joint_objective(p, patch_mask, measured, gx, gy,
-                                  weight_inverse, grid, gen, spec.roi,
-                                  weights=weights, operators=ops)
-        return loss
-
-    result = run_first_order(objective, x0, spec.n_iter, spec.method, lr=lr,
-                             lr_decay=spec.lr_decay,
-                             track_best=spec.track_best)
-    params = result.param
-    patch_flow, _ = _masked_patch_flow(params, patch_mask, gen)
-    dense = patch_to_dense(patch_flow, grid, operators=ops)
-    return dense, {"params": params, "history": result.history,
-                   "loss": result.loss}
+    return program.solve_joint(histogram, weights, weight_inverse, gx, gy,
+                               patch_mask, x0, lr)
 
 
 def estimate_frame_dependent(ev: Events, frame,
                              generator: Optional[torch.Generator],
                              spec: PatchSpec,
                              init_params: Optional[torch.Tensor] = None,
-                             device=None):
+                             device=None,
+                             program: Optional[PatchProgram] = None):
     """Per-frame joint tiled solve → dense flow ``[2, H, W]`` (+aux).  Runs
-    on the GPU unless ``device`` asks otherwise."""
+    on the GPU unless ``device`` asks otherwise; ``program`` (a joint
+    :class:`PatchProgram` of ``spec``) as in :func:`estimate_frame_patch`."""
     dev = resolve_device(device)
     ev, gx, gy, hist, weights, weight_inverse = frame_constants(
-        ev, frame, spec.gen, dev)
+        ev, frame, spec.gen, dev, None if program is None else program.cache)
     active = active_patch_mask(ev, spec)
     return solve_patches_joint(hist, weights, weight_inverse, gx, gy, active,
-                               generator, spec, init_params=init_params)
+                               generator, spec, init_params=init_params,
+                               program=program)

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..graphs import KeptSolve
 from ..ops.gradients import frame_gradients, poisson_to_flow
 from ..ops.image_warp import resize_bilinear
 from ..optim import FirstOrderLoop
@@ -223,56 +224,44 @@ def _loop_constants(histogram, weights, weight_inverse, gx, gy, mask,
     return consts, strips, gen, roi_crop
 
 
-def _signature(consts, strips):
-    def sig(t):
-        return None if t is None else (tuple(t.shape), t.dtype, t.device)
-
-    return (tuple((k, sig(v)) for k, v in consts.items()),
-            None if strips is None else
-            tuple((len(st[0]), len(st[1])) + tuple(sig(g) for g in st[2:5])
-                  for st in strips))
-
-
 class SolveProgram:
     """The pyramid's solve for one spec, kept from frame to frame: the
     counterpart of the JAX package's jitted per-frame solve program.
 
-    It holds the loop's constant images in buffers of its own (the
-    measurement, the gradients, the inverse-event weights, the mask, the
-    event weights, the restricted objective's strips), each scale's
-    interpolation operators and each scale's
+    Its :class:`~event_based_bos_tpu_torch.graphs.KeptSolve` holds the
+    loop's constant images in buffers of its own (the measurement, the
+    gradients, the inverse-event weights, the mask, the event weights, the
+    restricted objective's strips), each scale's
     :class:`~event_based_bos_tpu_torch.optim.FirstOrderLoop`, whose step
-    reads those buffers.  On the card each scale's step is captured at the
-    program's first solve and replayed at every later one; a solve copies
-    its frame's constants and its starts into the buffers and replays.
-    Inputs of other shapes or dtypes rebuild it.  Its outputs are copies,
-    so a later solve (a restart lane, the next frame) leaves them as they
-    are.
+    reads those buffers, and the resize matrices between scales; the
+    program adds each scale's interpolation operators.  On the card each
+    scale's step is captured at the program's first solve and replayed at
+    every later one; a solve copies its frame's constants and its starts
+    into the buffers and replays.  Inputs of other shapes or dtypes
+    rebuild it.  Its outputs are copies, so a later solve (a restart lane,
+    the next frame) leaves them as they are.
     """
 
     def __init__(self, spec: PyramidSpec):
         self.spec = spec
-        self.loops: List[FirstOrderLoop] = []
-        self._signature = None
-        self._buffers: Dict[str, Optional[torch.Tensor]] = {}
-        self._strips = None
+        self.kept = KeptSolve()
         self._lr = None
         self._fine_ops = None
 
-    def _build(self, consts, strips, gen, roi_crop, device) -> None:
-        """Own buffers for the constants, and each scale's operators and
-        loop over them."""
+    @property
+    def loops(self) -> List[FirstOrderLoop]:
+        return self.kept.loops
+
+    def _build(self, strips, gen, roi_crop, device) -> None:
+        """Each scale's operators and loop over the kept buffers."""
         spec = self.spec
         cd = gen.compute_dtype or gen.dtype
-        self._buffers = bufs = {k: None if v is None else v.clone()
-                                for k, v in consts.items()}
-        self._strips = own_strips = (
-            None if strips is None else
-            [(r, c) + tuple(g.clone() for g in st) + (area,)
-             for r, c, *st, area in strips])
+        bufs, strip_bufs = self.kept.buffers
+        own_strips = (None if strips is None else
+                      [(st[0], st[1]) + tuple(g) + (st[5],)
+                       for st, g in zip(strips, strip_bufs)])
         self._fine_ops = dense_operators(pyramid_grids(spec)[-1],
                                          spec.gen.dtype, device)
-        self.loops = []
         for grid, n_it in zip(pyramid_grids(spec), scale_iterations(spec)):
             ops = dense_operators(grid, cd, device, crop=roi_crop)
             strip_ops = (None if own_strips is None else
@@ -288,20 +277,11 @@ class SolveProgram:
                     roi_crop=roi_crop, norm_strips=own_strips,
                     strip_operators=_strip_ops)
 
-            self.loops.append(FirstOrderLoop(
+            self.kept.loops.append(FirstOrderLoop(
                 objective, n_it, method=spec.method, lr=spec.lr,
                 lr_decay=spec.lr_decay, track_best=spec.track_best,
                 has_aux=True, record_every=spec.record_evolution))
         self._lr = spec.lr
-
-    def _bind(self, consts, strips) -> None:
-        """Copy a frame's constants into the buffers."""
-        for k, v in consts.items():
-            if v is not None:
-                self._buffers[k].copy_(v)
-        for mine, st in zip(self._strips or (), strips or ()):
-            for dst, src in zip(mine[2:5], st[2:5]):
-                dst.copy_(src)
 
     def solve(self, histogram: torch.Tensor, weights: Optional[torch.Tensor],
               weight_inverse: torch.Tensor, gx: torch.Tensor,
@@ -315,12 +295,10 @@ class SolveProgram:
         dev = histogram.device
         consts, strips, gen_loop, roi_crop = _loop_constants(
             histogram, weights, weight_inverse, gx, gy, mask, spec)
-        signature = _signature(consts, strips)
-        if signature != self._signature:
-            self._build(consts, strips, gen_loop, roi_crop, dev)
-            self._signature = signature
-        else:
-            self._bind(consts, strips)
+        strip_images = (None if strips is None
+                        else [list(st[2:5]) for st in strips])
+        if self.kept.bind((consts, strip_images)):
+            self._build(strips, gen_loop, roi_crop, dev)
         lr = spec.lr if lr is None else lr
         if torch.is_tensor(lr) or lr != self._lr:
             for loop in self.loops:
@@ -342,7 +320,7 @@ class SolveProgram:
                 else:
                     x0 = initialize_params(generator, grid.shape, gen, dev)
             else:
-                x0 = resize_bilinear(params, grid.shape)
+                x0 = self.kept.resize(params, grid.shape)
                 if prev_params is not None:
                     x0 = (prev_params[i] + x0) / 2.0
             result = loop.run(x0)

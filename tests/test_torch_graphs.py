@@ -2,8 +2,9 @@
 ``optim.FirstOrderLoop``, ``solver/pyramid.SolveProgram``), on the CPU.
 
 A CUDA graph needs the card, so the graph route is driven here through a
-stand-in capture (:class:`_StubGraph`): like a real capture it records
-the step without running it, and each replay runs the step.  With it:
+stand-in capture (``torch_parity.StubGraph``): like a real capture it
+records the step without running it, and each replay runs the step.  With
+it:
 
 * (a) one step of every caller of ``run_first_order`` runs under a
   dispatch mode that fails on any op that reads the host or has a
@@ -30,7 +31,6 @@ import optax
 import optax.tree_utils as otu
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 import event_based_bos_tpu_torch.solver.cmax as tcmax
 import event_based_bos_tpu_torch.solver.facades as tfacades
@@ -43,12 +43,12 @@ from event_based_bos_tpu_torch import graphs, kernels
 from event_based_bos_tpu_torch import optim as topt
 from event_based_bos_tpu_torch.types import events_from_ndarray
 from event_based_bos_tpu_torch.utils.config import propagate_config
-from torch_parity import CPU, small_config, small_scene, torch_threads
+from torch_parity import (CPU, NoHostReads, clear_kept_programs,
+                          same_bits, small_config, small_scene, stub_capture,
+                          torch_threads)
 
 H, W = 64, 96
 ROI = (0, H, 16, 80)
-
-aten = torch.ops.aten
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -57,70 +57,15 @@ def one_torch_thread():
         yield
 
 
-class NoHostReads(TorchDispatchMode):
-    """Fails on an op that reads a tensor on the host or whose output shape
-    depends on the data."""
-
-    FORBIDDEN = {aten._local_scalar_dense, aten.nonzero, aten.masked_select,
-                 aten.equal, aten.is_nonzero, aten.argwhere,
-                 aten.repeat_interleave, aten.bincount, aten.masked_scatter}
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        packet = func.overloadpacket
-        name = packet.__name__
-        if packet in self.FORBIDDEN or name.startswith("unique") \
-                or name.startswith("_unique"):
-            raise AssertionError(f"{func} cannot be captured")
-        if packet in (aten.index, aten.index_put, aten.index_put_):
-            indices = args[1] if len(args) > 1 else kwargs.get("indices")
-            if any(t is not None and t.dtype == torch.bool
-                   for t in indices):
-                raise AssertionError(f"{func} with a boolean mask cannot be "
-                                     "captured")
-        return func(*args, **kwargs)
-
-
-class _StubGraph:
-    """A stand-in capture: records the step without running it; a replay
-    runs it, the first one under :class:`NoHostReads`."""
-
-    captured = []
-
-    def __init__(self, step, device):
-        self.step = step
-        self.pool_bytes = 0
-        self.replays = 0
-        _StubGraph.captured.append(self)
-
-    def replay(self):
-        if self.replays == 0:
-            with NoHostReads():
-                self.step()
-        else:
-            self.step()
-        self.replays += 1
-
-
 @pytest.fixture
 def stub_graphs(monkeypatch):
-    """The graph route on the CPU, through :class:`_StubGraph`."""
-    _StubGraph.captured = []
-    monkeypatch.setattr(graphs, "graph_route", lambda device: True)
-    monkeypatch.setattr(graphs, "_capture", _StubGraph)
-    return _StubGraph.captured
+    """The graph route on the CPU, through the stand-in capture
+    (``torch_parity.StubGraph``)."""
+    yield stub_capture(monkeypatch)
+    clear_kept_programs()
 
 
-def _same(a, b):
-    if isinstance(a, dict):
-        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
-    if isinstance(a, (list, tuple)):
-        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
-    if torch.is_tensor(a):
-        return (a.dtype == b.dtype and a.shape == b.shape
-                and torch.equal(a, b) and torch.equal(a.signbit(),
-                                                      b.signbit()))
-    return a == b
+_same = same_bits
 
 
 # ---------------------------------------------------------------------------
@@ -387,7 +332,7 @@ def test_prewarm_captures_each_schedule_and_changes_no_frame(
     assert len(lines) == 2 and all("capacity 4096" in x for x in lines)
     assert torch.equal(warmed._generator.get_state(), before)
     captured = len(stub_graphs)
-    assert captured == 4  # two scales, two schedules
+    assert captured == 5  # two scales, two schedules, and the IWE cache
     flows_w, hist_w = _frames(cfg, warmed)
     flows_c, hist_c = _frames(cfg, cold)
     assert all(np.array_equal(a, b) for a, b in zip(flows_w, flows_c))

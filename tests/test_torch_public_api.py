@@ -36,13 +36,6 @@ NAME_MAP = {
 
 #: (JAX module, name) → why the port has no counterpart
 EXCLUDED = {
-    **{("solver/programs.py", name): "a jax.jit compile cache of a "
-       "per-frame program; the port's programs are plain functions "
-       "dispatched op by op (only the optimizer loops are captured, as CUDA "
-       "graphs at run time, graphs.py)"
-       for name in ("jit_clipped_iwe", "jit_eventmask", "jit_flow_error",
-                    "jit_flow_error_pair", "jit_flow_error_pair_device",
-                    "jit_fwl", "jit_fwl_device", "jit_render_bundle")},
     ("utils/misc.py", "enable_persistent_cache_if_beneficial"):
         "JAX's persistent compile cache; the port's CUDA graphs are "
         "captured in the process that replays them and cannot be kept "

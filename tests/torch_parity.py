@@ -9,6 +9,7 @@ import functools
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import event_based_bos_tpu.types as jtypes
 import event_based_bos_tpu_torch.types as ttypes
@@ -185,6 +186,98 @@ def torch_threads(n):
         yield
     finally:
         torch.set_num_threads(before)
+
+
+# ---------------------------------------------------------------------------
+# The graph route on the CPU: a stand-in capture and a host-read detector
+# (``test_torch_graphs.py``, ``test_torch_programs.py``)
+# ---------------------------------------------------------------------------
+
+aten = torch.ops.aten
+
+
+class NoHostReads(TorchDispatchMode):
+    """Fails on an op that reads a tensor on the host or whose output shape
+    depends on the data."""
+
+    FORBIDDEN = {aten._local_scalar_dense, aten.nonzero, aten.masked_select,
+                 aten.equal, aten.is_nonzero, aten.argwhere,
+                 aten.repeat_interleave, aten.bincount, aten.masked_scatter}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        packet = func.overloadpacket
+        name = packet.__name__
+        if packet in self.FORBIDDEN or name.startswith("unique") \
+                or name.startswith("_unique"):
+            raise AssertionError(f"{func} cannot be captured")
+        if packet in (aten.index, aten.index_put, aten.index_put_):
+            indices = args[1] if len(args) > 1 else kwargs.get("indices")
+            if any(t is not None and t.dtype == torch.bool
+                   for t in indices):
+                raise AssertionError(f"{func} with a boolean mask cannot be "
+                                     "captured")
+        return func(*args, **kwargs)
+
+
+class StubGraph:
+    """A stand-in capture: records the step without running it; a replay
+    runs it, the first one under :class:`NoHostReads`."""
+
+    captured = []
+
+    def __init__(self, step, device):
+        self.step = step
+        self.pool_bytes = 0
+        self.replays = 0
+        StubGraph.captured.append(self)
+
+    def replay(self):
+        if self.replays == 0:
+            with NoHostReads():
+                self.step()
+        else:
+            self.step()
+        self.replays += 1
+
+
+def clear_kept_programs():
+    """Forget the port's kept per-frame evaluation programs (module-level
+    caches, as the JAX package's ``jit_*`` factories are)."""
+    from event_based_bos_tpu_torch.solver import programs
+
+    for name in programs.__all__:
+        if name.startswith("jit_"):
+            getattr(programs, name).cache_clear()
+
+
+def stub_capture(monkeypatch):
+    """The graph route on the CPU (outside ``graphs.eager_loops()``),
+    through :class:`StubGraph`; returns the list of its captures."""
+    from event_based_bos_tpu_torch import graphs
+
+    StubGraph.captured = []
+    clear_kept_programs()
+    monkeypatch.setattr(graphs, "graph_route",
+                        lambda device: graphs._eager_depth == 0)
+    monkeypatch.setattr(graphs, "_capture", StubGraph)
+    return StubGraph.captured
+
+
+def same_bits(a, b):
+    """Whether two nests of tensors (dicts, lists, tuples) are equal bit for
+    bit, the signs of zeros included."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_bits(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_bits(x, y)
+                                        for x, y in zip(a, b))
+    if torch.is_tensor(a):
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a, b) and torch.equal(a.signbit(),
+                                                      b.signbit()))
+    return a == b
 
 
 # ---------------------------------------------------------------------------
