@@ -9,9 +9,9 @@ failure:
 
 1. card identity (``nvidia-smi`` name and power limit) and TF32 switched off;
 2. build of every CUDA kernel from ``event_based_bos_tpu_torch/csrc``
-   (``hat_vote.cu`` and ``cmax_stencil.cu``) and of the vote kernel's
-   earlier design (``tools/hat_vote_atomic.cu``), one ``nvcc`` each, in
-   parallel;
+   (``hat_vote.cu``, ``cmax_stencil.cu`` and ``graph_while.cu``) and of
+   the vote kernel's earlier design (``tools/hat_vote_atomic.cu``), one
+   ``nvcc`` each, in parallel;
 3. the vote entry (``ops/iwe_cuda.py::hat_vote``) against its plain
    PyTorch version on the card at the main path's shapes (2^19 events,
    720×1280), bit-exact on integer coordinates: the signed, unsigned and
@@ -135,18 +135,14 @@ failure:
    du = (1.5, −0.8), 523,264 events on integer sensor coordinates): GML
    (the plain model with the warp pair, lr 0.05) with Adam, 600 steps, a
    warm-up and two timed frames (bit-identical, cosine of the fitted
-   velocity with −du > 0.9); one frame each of BFGS (40), Nelder-Mead
-   (200), Newton-CG (20), all from (0.1, −0.1, 0, 0), and of ``random``
-   and ``grid`` (512 trials of (v_x, v_y) in (−3, 3)²), each with a final
-   loss below its first; ``TPE`` (100 trials) through the GML facade;
-   PatchEklt and PatchEkltDependent at the facades' defaults (4/2 patches:
-   229,401 patches, 600 Adam steps; the angle and the poisson model), a
-   warm-up and two timed frames each (bit-identical; PatchEklt's mean
-   direction's cosine with −du > 0.5, the joint loss decreasing); CMax's
-   translation model (16 bins) with ``random`` (512) and ``BFGS`` (40) in
-   (−4, 4)² on the translating dots, within 0.5 px of their motion; one
-   vote launch a solve, the host reads (L-BFGS's line search, TPE's
-   trials) and the CUDA synchronisations counted per solve; the GML
+   velocity with −du > 0.9); ``TPE`` (100 trials) through the GML
+   facade; PatchEklt and PatchEkltDependent at the facades' defaults (4/2
+   patches: 229,401 patches, 600 Adam steps; the angle and the poisson
+   model), a warm-up and two timed frames each (bit-identical; PatchEklt's
+   mean direction's cosine with −du > 0.5, the joint loss decreasing);
+   one vote launch a solve, TPE's host reads (one a trial) and the CUDA
+   synchronisations counted per solve (the other optimizer families and
+   CMax's translation model are phase 17's); the GML
    serving loop (``cli.evaluate_per_frames``, phase 6's loader, the
    ``configs/hot_plate1.yaml`` solver with ``method:
    generative_max_likelihood``: 3 parameters, two frames; one vote a frame
@@ -246,7 +242,42 @@ failure:
    and without ``pipeline: true``, and one frame under ``eager_loops()``:
    ``pred_flow`` and both error texts byte-identical across all of them;
    ms/frame after the first frame, and the device ms of the IWE cache and
-   of the error pair a call on each route.
+   of the error pair a call on each route;
+17. the other optimizer families as kept device programs: first the while
+   graph's own check (``graphs.WhileGraph``, whose conditional WHILE node's
+   condition kernel is ``csrc/graph_while.cu``) on a body that counts to
+   100, ten launches against the same body in a Python loop that reads
+   the flag after each trial (the same counts, a condition launch a
+   trial; µs a trial both ways), and L-BFGS on the tests' quartic in
+   float64 (10 iterations) and float32 (5) through the while graph,
+   under ``eager_loops()`` and on the CPU (the two card routes bit for
+   bit, trials included; the card within 1e-8 of the CPU in float64 with
+   its trials and best iterate, within 1e-5 relative in float32).  Then
+   at phase 11's scene, GML from (0.1,
+   −0.1, 0, 0) with BFGS (40 iterations: each one launch of a graph whose
+   WHILE node repeats the zoom line search's trial), Nelder-Mead (200),
+   Newton-CG (20), and ``random`` and ``grid`` (512 trials in (−3, 3)²),
+   and CMax's translation model (16 bins) with ``random`` (512) and BFGS
+   (40) in (−4, 4)² on the translating dots: each through a kept
+   ``GmlProgram`` / ``CmaxProgram`` (a warm-up and two timed solves),
+   through the per-call route in turns (two solves; one for CMax) and
+   under one ``eager_loops()`` solve.  The flow, θ or motion, loss,
+   history, best iterate and L-BFGS's trials an iteration bit-identical
+   across the routes; no host read and no CUDA synchronisation inside a
+   timed kept solve; captures in the first kept solve only; L-BFGS's
+   trials a solve equal to the condition kernel's launches (and to the
+   eager route's host reads); one vote a solve held against
+   ``hat_vote_plain``; phase 11's checks (a finite flow and the final loss
+   below the first for GML, the flow within 0.5 px of the dots' motion
+   for CMax).  Prints, beside the card's name and power limit, each
+   route's ms a solve (CUDA events), the idle share of a traced kept
+   solve (its Chrome trace's device events, the condition kernel's
+   among them), capture ms and pool MB, trials and condition launches.
+   Then phase 6's serving loop with ``configs/hot_plate1.yaml``'s solver
+   under ``method: generative_max_likelihood`` and ``optimizer.method:
+   BFGS`` (40 iterations), three frames kept, kept with ``pipeline: true``
+   and per-call: ``pred_flow`` and both error texts byte-identical, one
+   capture log line a run that keeps programs.
 
 Prints the whole run's seconds, a ``kernels`` JSON line, the
 ``nvidia-smi`` line, and last
@@ -254,6 +285,7 @@ Prints the whole run's seconds, a ``kernels`` JSON line, the
 when there is no GPU or the port is missing.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -2590,16 +2622,17 @@ def check_small_other_solvers(device):
 
 def run_other_solvers(device, loader, gt):
     """Phase 11: the other solvers at full width on a 720×1280
-    uniform-displacement scene, CMax's translation model on the translating
-    dots, and the GML serving loop."""
+    uniform-displacement scene (GML Adam, TPE, PatchEklt and
+    PatchEkltDependent; the other optimizer families, and CMax's
+    translation model on the translating dots, are phase 17's) and the GML
+    serving loop."""
     import numpy as np
     import torch
 
     from event_based_bos_tpu_torch import events_from_ndarray, kernels
     from event_based_bos_tpu_torch.solver import (
-        estimate_frame_cmax, estimate_frame_dependent, estimate_frame_gml,
-        estimate_frame_patch, facades, generative)
-    from event_based_bos_tpu_torch.solver.cmax import CmaxSpec
+        estimate_frame_dependent, estimate_frame_gml, estimate_frame_patch,
+        facades, generative)
 
     t_phase = time.perf_counter()
     dev = torch.device(device)
@@ -2625,30 +2658,6 @@ def run_other_solvers(device, loader, gt):
     assert cos > 0.9, cos
     results["gml_adam"] = dict(ms_per_frame=ms, cosine=cos)
     votes += 3
-
-    # GML, the other families: one frame each
-    for method, n_iter in (("BFGS", 40), ("Nelder-Mead", 200),
-                           ("Newton-CG", 20), ("random", OTHER_TRIALS),
-                           ("grid", OTHER_TRIALS)):
-        spec = gml_spec(method, n_iter)
-        sampler = method in ("random", "grid")
-        (flow, aux), ms, v, syncs = timed_solve(
-            lambda: estimate_frame_gml(
-                ev, frame_t, torch.Generator(dev).manual_seed(0), spec,
-                x0=None if sampler else x0, device=dev))
-        hist = aux["history"].cpu().numpy()
-        flow_np = flow.cpu().numpy()
-        cos = direction_cosine(flow_np)
-        reads = aux.get("host_reads", 0)
-        print(f"other solvers: GML {method} {n_iter}: {ms:.1f} ms, "
-              f"{len(hist)} losses {hist[0]:.6g} -> best "
-              f"{float(aux['loss']):.6g}, cosine with -du {cos:.4f}, vote "
-              f"launches {v}, host reads {reads}, CUDA syncs {syncs}")
-        assert np.isfinite(flow_np).all() and v == 1, (method, v)
-        assert float(aux["loss"]) < hist[0], (method, hist[0])
-        results[f"gml_{method}"] = dict(ms_per_frame=ms, cosine=cos,
-                                        host_reads=reads, cuda_syncs=syncs)
-        votes += 1
 
     # GML TPE through the facade (100 trials; the study on the host)
     solver_config = other_solver_config("generative_max_likelihood",
@@ -2711,33 +2720,6 @@ def run_other_solvers(device, loader, gt):
     assert torch.isfinite(flow).all() and float(aux["loss"]) < hist[0]
     results["patch_eklt_dependent"] = dict(ms_per_frame=ms, cosine=cos)
     votes += 3
-
-    # CMax's translation model on the translating dots
-    vx, vy = DOT_MOTION
-    dots = moving_dot_events(H, W, vx, vy, CAPACITY - 1024, seed=1)
-    dots[:, :2] = np.round(dots[:, :2])
-    dev_dots = events_from_ndarray(dots, capacity=CAPACITY, device=dev)
-    for method, n_iter in (("random", OTHER_TRIALS), ("BFGS", 40)):
-        cspec = CmaxSpec(image_size=(H, W), roi=ROI,
-                         motion_model="2d-translation", n_iter=n_iter,
-                         method=method,
-                         param_bounds=((-CMAX_BOX, CMAX_BOX),) * 2)
-        (flow, aux), ms, v, syncs = timed_solve(
-            lambda: estimate_frame_cmax(
-                dev_dots, None, torch.Generator(dev).manual_seed(0), cspec,
-                device=dev))
-        got = flow[:, 0, 0].cpu().numpy()
-        err = float(np.abs(got - [vx, vy]).max())
-        reads = aux.get("host_reads", 0)
-        print(f"other solvers: CMax translation {method} {n_iter} "
-              f"({cspec.time_bins} bins): {ms:.1f} ms, flow "
-              f"{got.tolist()} (dots {vx:g}, {vy:g}; off by {err:.3f} px, "
-              f"limit 0.5), vote launches {v}, host reads {reads}, CUDA "
-              f"syncs {syncs}")
-        assert v == 1 and err < 0.5, (method, got)
-        results[f"cmax_{method}"] = dict(ms_per_frame=ms, error_px=err,
-                                         host_reads=reads, cuda_syncs=syncs)
-        votes += 1
 
     # the serving loop: configs/hot_plate1.yaml's solver section with
     # method: generative_max_likelihood (the poisson model with the warp
@@ -4567,26 +4549,28 @@ class VoteCheck:
 
 
 class CaptureCount:
-    """Counts the captures of every graph (``graphs._capture`` wrapped: the
-    loops' steps and the whole-function programs); :meth:`restore`
-    unwraps."""
+    """Counts the captures of every graph (``graphs._capture`` and
+    ``graphs._while_capture`` wrapped: the loops' steps, L-BFGS's while
+    graphs and the whole-function programs); :meth:`restore` unwraps."""
 
     def __init__(self):
         from event_based_bos_tpu_torch import graphs
 
         self.n = 0
-        self._original = original = graphs._capture
+        self._originals = {name: getattr(graphs, name)
+                           for name in ("_capture", "_while_capture")}
+        for name, original in self._originals.items():
+            def counted(*args, _original=original):
+                self.n += 1
+                return _original(*args)
 
-        def counted(step, device):
-            self.n += 1
-            return original(step, device)
-
-        graphs._capture = counted
+            setattr(graphs, name, counted)
 
     def restore(self):
         from event_based_bos_tpu_torch import graphs
 
-        graphs._capture = self._original
+        for name, original in self._originals.items():
+            setattr(graphs, name, original)
 
 
 class parent_route:
@@ -4872,13 +4856,19 @@ def clear_kept_programs():
             getattr(programs, name).cache_clear()
 
 
-def serving_routes(name, make_config, loader, gt, device, n_frames):
+SERVING_RUNS = (("kept", False), ("kept", True), ("per_call", False),
+                ("per_call", True))
+
+
+def serving_routes(name, make_config, loader, gt, device, n_frames,
+                   phase="phase 16", runs_of=SERVING_RUNS, eager=True):
     """Phase 6's serving loop on one config through the kept programs and
-    through the per-call route, each with and without ``pipeline: true``,
-    and one frame under ``eager_loops()``: ``pred_flow`` and both error
-    texts byte-identical across routes; ms/frame of each run (host wall
-    clock) and the device ms a frame of the IWE cache and of the error
-    pair (CUDA events around each call)."""
+    through the per-call route (``runs_of``: by default each with and
+    without ``pipeline: true``), and with ``eager`` one frame under
+    ``eager_loops()``: ``pred_flow`` and both error texts byte-identical
+    across routes; ms/frame of each run (host wall clock) and the device
+    ms a frame of the IWE cache and of the error pair (CUDA events around
+    each call)."""
     from event_based_bos_tpu_torch import graphs
     from event_based_bos_tpu_torch.solver import facades, programs
 
@@ -4887,65 +4877,65 @@ def serving_routes(name, make_config, loader, gt, device, n_frames):
              "error_pair_host_flow": (programs, "flow_error_pair")}
     runs = {}
     check = None
-    for route in ("kept", "per_call"):
-        for pipelined in (False, True):
-            config = make_config(f"{name}_{route}_{int(pipelined)}")
-            config["pipeline"] = pipelined
-            spans = CallerSpans(timed)
+    for route, pipelined in runs_of:
+        config = make_config(f"{name}_{route}_{int(pipelined)}")
+        config["pipeline"] = pipelined
+        spans = CallerSpans(timed)
+        if route == "kept":
+            # the evaluation programs too are captured in this run
+            clear_kept_programs()
+            check = VoteCheck()
+        try:
             if route == "kept":
-                # the evaluation programs too are captured in this run
-                clear_kept_programs()
-                check = VoteCheck()
-            try:
-                if route == "kept":
+                solv, launches, _c, first, ms, _l = drive_serving(
+                    config, loader, device, gt)
+                checked = check.check()
+            else:
+                with parent_route():
                     solv, launches, _c, first, ms, _l = drive_serving(
                         config, loader, device, gt)
-                    checked = check.check()
-                else:
-                    with parent_route():
-                        solv, launches, _c, first, ms, _l = drive_serving(
-                            config, loader, device, gt)
-                    checked = None
-            finally:
-                spans.restore()
-                if route == "kept":
-                    check.restore()
-            check_serving_outputs(config, n_frames,
-                                  zero_outside=name == "pyramid")
-            # each frame from its dispatch to the next (the last: to the
-            # loop's end); the first holds the kept route's captures
-            marks = first["dispatched"] + [first["end"]]
-            frame_ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
-            runs[(route, pipelined)] = dict(
-                dir=config["output_dir"], ms_per_frame=ms,
-                frame_ms=frame_ms,
-                steady_ms_per_frame=statistics.median(frame_ms[1:]),
-                launches=launches, device_ms_per_call=spans.ms(),
-                device_ms_steady={k: statistics.median(v[1:])
-                                  for k, v in spans.ms().items()
-                                  if len(v) > 1},
-                votes_checked=checked,
-                programs=len(getattr(solv, "_programs", {})))
-    config = make_config(f"{name}_eager", time_list=((0.01, 0.11),))
-    with graphs.eager_loops():
-        drive_serving(config, loader, device, gt)
-    check_serving_outputs(config, 1, zero_outside=name == "pyramid")
+                checked = None
+        finally:
+            spans.restore()
+            if route == "kept":
+                check.restore()
+        check_serving_outputs(config, n_frames,
+                              zero_outside=name == "pyramid")
+        # each frame from its dispatch to the next (the last: to the
+        # loop's end); the first holds the kept route's captures
+        marks = first["dispatched"] + [first["end"]]
+        frame_ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+        runs[(route, pipelined)] = dict(
+            dir=config["output_dir"], ms_per_frame=ms,
+            frame_ms=frame_ms,
+            steady_ms_per_frame=statistics.median(frame_ms[1:]),
+            launches=launches, device_ms_per_call=spans.ms(),
+            device_ms_steady={k: statistics.median(v[1:])
+                              for k, v in spans.ms().items()
+                              if len(v) > 1},
+            votes_checked=checked,
+            programs=len(getattr(solv, "_programs", {})))
     base = runs[("kept", False)]["dir"]
     same = {f"{route}{'_pipelined' if p else ''}": same_outputs(
         base, r["dir"], n_frames) for (route, p), r in runs.items()}
-    # the one eager frame against the kept run's first frame and lines
-    same["eager_loops"] = same_outputs(base, config["output_dir"], 1,
-                                       lines=1)
+    if eager:
+        config = make_config(f"{name}_eager", time_list=((0.01, 0.11),))
+        with graphs.eager_loops():
+            drive_serving(config, loader, device, gt)
+        check_serving_outputs(config, 1, zero_outside=name == "pyramid")
+        # the one eager frame against the kept run's first frame and lines
+        same["eager_loops"] = same_outputs(base, config["output_dir"], 1,
+                                           lines=1)
     card = card_line()
     for (route, p), r in runs.items():
-        print(f"phase 16: serving {name} {route}{', pipeline' if p else ''}:"
+        print(f"{phase}: serving {name} {route}{', pipeline' if p else ''}:"
               f" {r['steady_ms_per_frame']:.1f} ms/frame after the first "
               f"(frames {[round(t, 1) for t in r['frame_ms']]}, wall clock; "
               f"{r['ms_per_frame']:.1f} over all); device ms a call after "
               f"the first {r['device_ms_steady']} (CUDA events; every call "
               f"{r['device_ms_per_call']}); launches {r['launches']}; votes "
               f"held against the plain vote {r['votes_checked']}; {card}")
-    print(f"phase 16: serving {name}: pred_flow and error texts "
+    print(f"{phase}: serving {name}: pred_flow and error texts "
           f"byte-identical to the kept synchronous run's {same}")
     assert all(all(v) for v in same.values()), same
     assert runs[("kept", False)]["launches"] == runs[("per_call", False)][
@@ -4970,6 +4960,507 @@ def run_kept_programs(events, loader, gt, device):
     print(f"phase 16: {out['seconds']:.1f} s")
     print(json.dumps({"kept_programs": out}))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the other optimizer families as kept device programs
+# ---------------------------------------------------------------------------
+
+#: phase 17's GML solves (phase 11's methods and budgets) and CMax's
+PROGRAM_GML = (("BFGS", 40), ("Nelder-Mead", 200), ("Newton-CG", 20),
+               ("random", OTHER_TRIALS), ("grid", OTHER_TRIALS))
+PROGRAM_CMAX = (("random", OTHER_TRIALS), ("BFGS", 40))
+#: what the three routes must agree on, bit for bit
+PROGRAM_KEYS = ("theta", "motion", "loss", "history", "best_iter",
+                "ls_trials")
+WHILE_TRIALS = 100     # trials a launch of the while node's own check
+#: the L-BFGS quartic of ``tests/test_torch_optim_methods.py::_quartic``:
+#: (dtype, iterations, tolerance of the card against the CPU route)
+QUARTIC_CASES = (("float64", 10, 1e-8), ("float32", 5, 1e-5))
+WHILE_LAUNCHES = 10
+#: the L-BFGS line search inside optax's update, the JAX package's
+#: ``lax.while_loop`` that the while graph stands for
+WHILE_REPLACES = "event_based_bos_tpu/optim.py:193"
+
+
+def check_while_node(device):
+    """The while graph's own check: ``graphs.WhileGraph`` (its condition
+    kernel in ``csrc/graph_while.cu``) on a body that counts to
+    ``WHILE_TRIALS`` against the same body in a Python loop that reads the
+    flag after each trial: the same counts, and as many condition-kernel
+    launches as trials.  Times a trial both ways (CUDA events around
+    ``WHILE_LAUNCHES`` launches).  Returns the kernels line's entry."""
+    import torch
+
+    from event_based_bos_tpu_torch import graphs, kernels
+
+    dev = torch.device(device)
+    counter = torch.zeros((), dtype=torch.int64, device=dev)
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    limit = torch.full((), WHILE_TRIALS, dtype=torch.int64, device=dev)
+    flag = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def pre():
+        counter.zero_()
+
+    def body():
+        counter.add_(1)
+        flag.copy_(counter >= limit)
+
+    def post():
+        total.add_(counter)
+
+    def plain():
+        pre()
+        while True:
+            body()
+            if bool(flag):
+                break
+        post()
+
+    graph = graphs.WhileGraph(pre, body, post, flag, dev)
+    graph.run(1)  # the capture
+    spans, err = {}, 0
+    for route in ("plain", "graph", "graph", "plain"):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        total.zero_()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        if route == "graph":
+            graph.run(WHILE_LAUNCHES)
+        else:
+            for _ in range(WHILE_LAUNCHES):
+                plain()
+        e.record()
+        e.synchronize()
+        got = (int(total), kernels.device_launches("graph_while"))
+        want = (WHILE_TRIALS * WHILE_LAUNCHES,
+                WHILE_TRIALS * WHILE_LAUNCHES if route == "graph" else 0)
+        err = max(err, abs(got[0] - want[0]))
+        assert got == want, (route, got, want)
+        spans.setdefault(route, []).append(
+            s.elapsed_time(e) / (WHILE_TRIALS * WHILE_LAUNCHES))
+    kernels.reset_launches()
+    ms, plain_ms = min(spans["graph"]), min(spans["plain"])
+    # a trial's condition reads the one-byte flag and read-modify-writes
+    # the 8-byte launch counter
+    bound_ms = 1e3 * (1 + 16) / HBM_BYTES_PER_S
+    print(f"phase 17: while node: {WHILE_LAUNCHES} launches of "
+          f"{WHILE_TRIALS} trials, counts equal to the plain loop's; "
+          f"{ms * 1e3:.2f} us a trial on the card beside {plain_ms * 1e3:.2f}"
+          f" us with a host read a trial (bound {bound_ms * 1e3:.6f} us, "
+          f"bytes); capture {graph.capture_ms:.1f} ms; {card_line()}")
+    return {"name": "graph_while", "route": "cuda",
+            "source": "event_based_bos_tpu_torch/csrc/graph_while.cu",
+            "replaces": WHILE_REPLACES, "launches": 0,
+            "max_abs_err": float(err),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None,
+            "note": "a CUDA-graph WHILE node's condition kernel (ports no "
+                    "Pallas kernel: the JAX package's lax.while_loop); ms "
+                    "and plain_ms a trial of a counting body"}
+
+
+def quartic(dtype, device, seed=1, d=4):
+    """``0.5 xᵀAx − bᵀx + 0.05 Σx⁴``, the smooth convex quartic of a
+    ``[d]`` vector that the tests hold against optax (A and b drawn in
+    float64, then cast): ``(f, x0)`` in ``dtype`` on ``device``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    m = rng.normal(size=(d, d))
+    a, b = m @ m.T + np.eye(d), rng.normal(size=d)
+    x0 = rng.normal(size=d)
+    ta, tb, tx = (torch.as_tensor(v, dtype=getattr(torch, dtype),
+                                  device=device) for v in (a, b, x0))
+
+    def f(x):
+        return 0.5 * x @ (ta @ x) - tb @ x + 0.05 * torch.sum(x ** 4)
+
+    return f, tx
+
+
+def check_lbfgs_quartic(device):
+    """L-BFGS on :func:`quartic` in float64 and float32 three ways: through
+    the while graph on the card, under ``eager_loops()`` on the card, and
+    on the CPU (the route the tests hold against optax iterate by iterate).
+    The two card routes must agree bit for bit, trials included, with no
+    host read on the graph and one condition-kernel launch a trial; the
+    card must agree with the CPU within :data:`QUARTIC_CASES`' tolerance
+    (relative in float32), with the same trials and best iterate in
+    float64.  Returns the largest difference from the CPU."""
+    import numpy as np
+    import torch
+
+    from event_based_bos_tpu_torch import kernels
+    from event_based_bos_tpu_torch.graphs import eager_loops
+    from event_based_bos_tpu_torch.optim import run_lbfgs
+
+    keys = ("param", "last_param", "loss", "history", "best_iter",
+            "ls_trials")
+    worst = 0.0
+    for dtype, n_iter, tol in QUARTIC_CASES:
+        f, x0 = quartic(dtype, device)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        card = run_lbfgs(f, x0, n_iter)
+        launched = kernels.device_launches("graph_while")
+        with eager_loops():
+            eager = run_lbfgs(f, x0, n_iter)
+        f_cpu, x0_cpu = quartic(dtype, "cpu")
+        cpu = run_lbfgs(f_cpu, x0_cpu, n_iter)
+        kernels.reset_launches()
+        trials = card.ls_trials.tolist()
+        same = {k: same_tree(card[k], eager[k]) for k in keys}
+        got, want = (np.concatenate([r["history"].cpu().numpy(),
+                                     r["param"].cpu().numpy()])
+                     for r in (card, cpu))
+        err = float(np.max(np.abs(got - want)))
+        rel = float(np.max(np.abs(got - want) / np.abs(want)))
+        worst = max(worst, err)
+        print(f"phase 17: L-BFGS quartic {dtype} {n_iter}: card graph vs "
+              f"eager_loops() bit-identical {same}; trials {trials} "
+              f"(eager {eager.ls_trials.tolist()}, CPU "
+              f"{cpu.ls_trials.tolist()}), condition launches {launched}; "
+              f"host reads {card.host_reads} / eager {eager.host_reads}; "
+              f"best {int(card.best_iter)} / CPU {int(cpu.best_iter)}; vs "
+              f"the CPU max abs {err:.3g}, max rel {rel:.3g} (tolerance "
+              f"{tol:g}{' relative' if dtype == 'float32' else ''})")
+        assert all(same.values()), (dtype, same)
+        assert card.host_reads == 0 and launched == sum(trials), \
+            (dtype, card.host_reads, launched, trials)
+        assert eager.host_reads == sum(trials), (dtype, eager.host_reads)
+        if dtype == "float64":
+            assert err <= tol, (dtype, err)
+            assert trials == cpu.ls_trials.tolist(), (dtype, trials)
+            assert int(card.best_iter) == int(cpu.best_iter), dtype
+        else:
+            np.testing.assert_allclose(got, want, rtol=tol, atol=1e-6)
+    return worst
+
+
+def trace_events(fn):
+    """``fn()`` under ``torch.profiler`` (CUDA activity), between two CUDA
+    events: the device events of its Chrome trace (kernels, memsets,
+    copies) as ``(name, us)``, read back from the exported file (a
+    solve's ~10^5 events would take minutes through ``prof.events()``),
+    and the span's ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+    os.makedirs(TRACE_DIR, exist_ok=True)
+    path = os.path.join(TRACE_DIR, "phase17_solve.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    return ([(ev["name"], ev["dur"]) for ev in events
+             if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")],
+            s.elapsed_time(e))
+
+
+def picked(out):
+    """The outputs a route must reproduce: the flow and the aux entries of
+    :data:`PROGRAM_KEYS` (not ``host_reads``, which is the route's own)."""
+    flow, aux = out
+    return flow, {k: aux[k] for k in PROGRAM_KEYS if k in aux}
+
+
+def program_cell(name, kept, per_call, program, order, check):
+    """Phase 17: one solve through a kept program (its first frame a
+    warm-up), through the per-call route and under ``eager_loops()``, in
+    the turns of ``order``; every frame counted for captures, host reads,
+    CUDA synchronisations and L-BFGS's trials and condition-kernel
+    launches, every vote held against the plain vote; a traced kept solve
+    for the idle share.  ``check(flow, aux)`` holds phase 11's checks.
+    Returns the cell's numbers, the graph-route condition launches and
+    the kept route's flow."""
+    import torch
+
+    from event_based_bos_tpu_torch import kernels
+    from event_based_bos_tpu_torch.graphs import eager_loops
+
+    t_cell = time.perf_counter()
+    count, votes = CaptureCount(), VoteCheck()
+    rows = {"kept": [], "per_call": [], "eager": []}
+    outs = {}
+    while_launches = 0
+    try:
+        for route in order + ("eager",):
+            before = count.n
+            fn = {"kept": kept, "per_call": per_call}.get(route, kept)
+            with eager_loops() if route == "eager" else \
+                    contextlib.nullcontext():
+                out, ms, v, syncs = timed_solve(fn)
+            launched = kernels.device_launches("graph_while")
+            if route != "eager":
+                while_launches += launched
+            aux = out[1]
+            trials = (int(aux["ls_trials"].sum()) if "ls_trials" in aux
+                      else None)
+            rows[route].append(dict(ms=ms, votes=v, syncs=syncs,
+                                    captures=count.n - before,
+                                    host_reads=aux.get("host_reads"),
+                                    trials=trials, while_launches=launched))
+            outs.setdefault(route, out)
+            check(*out)
+            # a kept program's captured votes hold numbers from its
+            # second kept frame (its first replay) on
+            votes.check(replayed=len(rows["kept"]) >= 2)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        trace = trace_events(kept)
+        checked = votes.check()
+    finally:
+        votes.restore()
+        count.restore()
+    kernels.reset_launches()
+    same = {route: same_tree(picked(outs["kept"]), picked(outs[route]))
+            for route in ("per_call", "eager")}
+    flow_err = max(float((outs["kept"][0] - outs[route][0]).abs().max())
+                   for route in ("per_call", "eager"))
+    idle, busy, span = idle_share(trace)
+    conditions = sum("while_condition_kernel" in n for n, _us in trace[0])
+    capture_ms, pool = program_memory(program)
+    kept_rows, call_rows = rows["kept"], rows["per_call"]
+    timed = [r["ms"] for r in kept_rows[1:]]
+    eager_busy = None
+    if kept_rows[0]["trials"] is not None and \
+            conditions < kept_rows[0]["trials"]:
+        # the trace lost trials of the WHILE node's body: the device's busy
+        # time from a traced eager_loops() solve instead (the same kernels
+        # launched one by one, the same numbers)
+        with eager_loops():
+            eager_trace = trace_events(kept)
+        eager_busy = sum(us for _n, us in eager_trace[0]) / 1e3
+    out = dict(
+        kept_ms=statistics.median(timed), kept_frames_ms=timed,
+        per_call_ms=statistics.median(r["ms"] for r in call_rows),
+        per_call_frames_ms=[r["ms"] for r in call_rows],
+        eager_ms=rows["eager"][0]["ms"], idle_share=idle, busy_ms=busy,
+        traced_ms=span, trace_events=len(trace[0]),
+        trace_conditions=conditions, eager_busy_ms=eager_busy,
+        idle_share_from_eager_busy=(
+            None if eager_busy is None
+            else 1.0 - eager_busy / statistics.median(timed)),
+        captures=[r["captures"] for r in kept_rows],
+        capture_ms=capture_ms, pool_mb=pool / 2**20,
+        host_reads={k: [r["host_reads"] for r in v] for k, v in rows.items()},
+        cuda_syncs={k: [r["syncs"] for r in v] for k, v in rows.items()},
+        trials=[r["trials"] for r in kept_rows],
+        while_launches=[r["while_launches"] for r in kept_rows],
+        votes_checked=checked, bit_identical=same, max_abs_err=flow_err,
+        votes=sum(r["votes"] for v in rows.values() for r in v))
+    card = card_line()
+    print(f"phase 17: {name}: kept {out['kept_ms']:.1f} ms a solve (timed "
+          f"{', '.join(f'{t:.1f}' for t in timed)}; warm-up "
+          f"{kept_rows[0]['ms']:.1f}) beside per-call {out['per_call_ms']:.1f}"
+          f" ({', '.join(f'{t:.1f}' for t in out['per_call_frames_ms'])}) and"
+          f" eager_loops() {out['eager_ms']:.1f}; CUDA events, in turns; "
+          f"{card}")
+    print(f"phase 17: {name}: idle share {idle:.4f} of a traced kept solve "
+          f"(busy {busy:.1f} of {span:.1f} ms; {len(trace[0])} device "
+          f"events, {conditions} of the while node's condition kernel"
+          + ("" if eager_busy is None else
+             f"; it lost trials, so from a traced eager_loops() solve's "
+             f"busy {eager_busy:.1f} ms over the kept {out['kept_ms']:.1f}:"
+             f" {out['idle_share_from_eager_busy']:.4f}")
+          + "); captures a kept frame "
+          f"{out['captures']}; capture ms {[round(c, 1) for c in capture_ms]}"
+          f"; pools {out['pool_mb']:.1f} MB; {card}")
+    print(f"phase 17: {name}: host reads {out['host_reads']}, CUDA syncs "
+          f"{out['cuda_syncs']}; line-search trials a kept solve "
+          f"{out['trials']}, while-node launches {out['while_launches']}; "
+          f"bit-identical {same}; votes held against the plain vote "
+          f"{checked}; {time.perf_counter() - t_cell:.1f} s")
+    assert out["captures"][0] > 0 and not any(out["captures"][1:]), \
+        out["captures"]
+    assert all(same.values()), f"{name}: the routes differ: {same}"
+    assert all(r["votes"] == 1 for v in rows.values() for r in v), rows
+    assert checked["replayed"] >= len(kept_rows), checked
+    for r in kept_rows[1:]:
+        assert r["syncs"] == 0 and r["host_reads"] in (0, None), r
+    if out["trials"][0] is not None:
+        assert out["trials"] == out["while_launches"], out
+        assert rows["eager"][0]["host_reads"] == out["trials"][0], rows
+    return out, while_launches, outs["kept"][0]
+
+
+def gml_program_check(method):
+    """Phase 11's checks of a GML solve: a finite flow, the final loss
+    below the first; the cosine with −du is printed."""
+    import numpy as np
+
+    def check(flow, aux):
+        hist = aux["history"].cpu().numpy()
+        flow_np = flow.cpu().numpy()
+        assert np.isfinite(flow_np).all(), method
+        assert float(aux["loss"]) < hist[0], (method, hist[0])
+
+    return check
+
+
+def cmax_program_check(method):
+    """Phase 11's check of the CMax translation: the flow within 0.5 px of
+    the dots' motion."""
+    import numpy as np
+
+    def check(flow, aux):
+        got = flow[:, 0, 0].cpu().numpy()
+        err = float(np.abs(got - DOT_MOTION).max())
+        assert err < 0.5, (method, got.tolist(), err)
+
+    return check
+
+
+def kept_optimizer_programs(device):
+    """(a) of phase 17: the GML families at phase 11's scene and CMax's
+    translation model on the translating dots, each through a kept
+    program, the per-call route and ``eager_loops()``."""
+    import numpy as np
+    import torch
+
+    from event_based_bos_tpu_torch import events_from_ndarray
+    from event_based_bos_tpu_torch.solver.cmax import (CmaxProgram, CmaxSpec,
+                                                       estimate_frame_cmax)
+    from event_based_bos_tpu_torch.solver.gml import (GmlProgram,
+                                                      estimate_frame_gml)
+
+    dev = torch.device(device)
+    frame, evn = other_solvers_scene()
+    ev = events_from_ndarray(evn, capacity=CAPACITY, device=dev)
+    frame_t = torch.as_tensor(frame, dtype=torch.float32, device=dev)
+    x0 = torch.tensor([0.1, -0.1, 0.0, 0.0], device=dev)
+    cells, while_launches = {}, 0
+    for method, n_iter in PROGRAM_GML:
+        spec = gml_spec(method, n_iter)
+        sampler = method in ("random", "grid")
+        program = GmlProgram(spec)
+
+        def solve(program=None, spec=spec, sampler=sampler):
+            return estimate_frame_gml(
+                ev, frame_t, torch.Generator(dev).manual_seed(0), spec,
+                x0=None if sampler else x0, device=dev, program=program)
+
+        cell, launched, flow = program_cell(
+            f"GML {method} {n_iter}", lambda: solve(program), solve, program,
+            ("kept", "per_call", "kept", "per_call", "kept"),
+            gml_program_check(method))
+        cell["cosine"] = direction_cosine(flow.cpu().numpy())
+        print(f"phase 17: GML {method} {n_iter}: cosine with -du "
+              f"{cell['cosine']:.4f}")
+        cells[f"gml_{method}"] = cell
+        while_launches += launched
+        del program
+    vx, vy = DOT_MOTION
+    dots = moving_dot_events(H, W, vx, vy, CAPACITY - 1024, seed=1)
+    dots[:, :2] = np.round(dots[:, :2])
+    dev_dots = events_from_ndarray(dots, capacity=CAPACITY, device=dev)
+    for method, n_iter in PROGRAM_CMAX:
+        cspec = CmaxSpec(image_size=(H, W), roi=ROI,
+                         motion_model="2d-translation", n_iter=n_iter,
+                         method=method,
+                         param_bounds=((-CMAX_BOX, CMAX_BOX),) * 2)
+        program = CmaxProgram(cspec)
+
+        def csolve(program=None, cspec=cspec):
+            return estimate_frame_cmax(
+                dev_dots, None, torch.Generator(dev).manual_seed(0), cspec,
+                device=dev, program=program)
+
+        # one per-call solve beside the kept ones: each solve of the
+        # translation's banded matmuls takes seconds
+        cell, launched, _flow = program_cell(
+            f"CMax translation {method} {n_iter} ({cspec.time_bins} bins)",
+            lambda: csolve(program), csolve, program,
+            ("kept", "per_call", "kept", "kept"), cmax_program_check(method))
+        cells[f"cmax_{method}"] = cell
+        while_launches += launched
+        del program
+    return cells, while_launches
+
+
+def gml_bfgs_config(name, time_list=((0.01, 0.18),), **top):
+    """Phase 6's config with ``configs/hot_plate1.yaml``'s solver under
+    ``method: generative_max_likelihood`` and ``optimizer.method: BFGS``
+    (40 iterations)."""
+    config = serving_config(name, method="generative_max_likelihood",
+                            time_list=time_list)
+    config["solver"]["optimizer"].update(method="BFGS", n_iter=40)
+    config.update(top)
+    return config
+
+
+class CaptureLines:
+    """Counts the facades' "Capturing the solve program" log lines;
+    :meth:`restore` detaches."""
+
+    def __init__(self):
+        import logging
+
+        from event_based_bos_tpu_torch.solver import facades
+
+        self.lines = []
+        self.handler = logging.Handler()
+        self.handler.emit = lambda record: self.lines.append(
+            record.getMessage())
+        self.log = logging.getLogger(facades.__name__)
+        self.level = self.log.level
+        self.log.addHandler(self.handler)
+        self.log.setLevel(logging.INFO)
+
+    def restore(self):
+        self.log.removeHandler(self.handler)
+        self.log.setLevel(self.level)
+
+    @property
+    def captures(self):
+        return sum("Capturing the solve program" in line
+                   for line in self.lines)
+
+
+def run_optimizer_programs(events, loader, gt, device):
+    """Phase 17: L-BFGS, Nelder-Mead, Newton-CG and the samplers through
+    the facades' kept programs, then the GML serving loop with BFGS."""
+    t0 = time.perf_counter()
+    entry = check_while_node(device)
+    quartic_err = check_lbfgs_quartic(device)
+    out, entry["launches"] = kept_optimizer_programs(device)
+    out["votes"] = sum(cell["votes"] for cell in out.values())
+    # the L-BFGS flows through the while graph against the eager loop's
+    entry["max_abs_err"] = max(entry["max_abs_err"], *(
+        cell["max_abs_err"] for cell in out.values()
+        if isinstance(cell, dict) and cell["trials"][0] is not None))
+    out["lbfgs_quartic_max_abs_err_vs_cpu"] = quartic_err
+    # the condition kernel's launches of every graph-route L-BFGS solve,
+    # each counted from 0 just before it
+    assert entry["launches"] > 0, entry
+    print(f"phase 17: solvers {time.perf_counter() - t0:.1f} s")
+    lines = CaptureLines()
+    try:
+        out["serving_gml_bfgs"] = serving_routes(
+            "gml_bfgs", gml_bfgs_config, loader, gt, device, 3,
+            phase="phase 17", runs_of=SERVING_RUNS[:3], eager=False)
+    finally:
+        lines.restore()
+    # one line for each run that keeps programs: the kept synchronous and
+    # pipelined runs
+    print(f"phase 17: serving GML BFGS: {lines.captures} capture log lines "
+          f"in its two runs with kept programs")
+    assert lines.captures == 2, lines.lines
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 17: {out['seconds']:.1f} s")
+    print(json.dumps({"optimizer_programs": out}))
+    return out, entry
 
 
 def main():
@@ -5071,6 +5562,11 @@ def main():
     entries[0]["launches_kept_other_solvers"] = {
         k: kept[k]["launches"]["hat_vote_image"]
         for k in ("gml_adam", "patch_eklt", "patch_eklt_dependent")}
+    programs, while_entry = run_optimizer_programs(events, loader, gt, "cuda")
+    entries[0]["launches_optimizer_programs"] = programs["votes"]
+    for entry in entries[1:]:
+        entry["launches_optimizer_programs"] = 0
+    entries.append(while_entry)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": entries}))

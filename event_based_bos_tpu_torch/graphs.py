@@ -33,6 +33,14 @@ The graph route on the card:
 The launches of the port's kernels that a captured step makes are counted
 once per replay (:func:`event_based_bos_tpu_torch.kernels.recording`).
 
+A loop whose iteration holds a loop of its own, decided by the data (the
+zoom line search inside an L-BFGS iteration, a ``lax.while_loop`` inside
+the JAX package's ``lax.scan``), runs as a :class:`WhileGraph`: three
+captured parts, ``pre``, ``body`` and ``post``, assembled by
+``csrc/graph_while.cu`` into one graph whose conditional WHILE node repeats
+``body`` until a device flag is set.  One iteration is one launch of that
+graph, with no read to the host.
+
 Two more pieces keep a frame's work from frame to frame, as the JAX
 package keeps one ``jax.jit`` program per shape:
 
@@ -43,8 +51,10 @@ package keeps one ``jax.jit`` program per shape:
   returns copies of the outputs;
 * :class:`KeptSolve` holds a solve's per-frame constants in buffers of its
   own and the solve's loops over them (each loop's step a
-  :class:`StepGraph`), and the interpolation matrices between scales: the
-  solve programs of the pyramid, CMax, GML and the tiled solvers.
+  :class:`StepGraph`, L-BFGS's iteration a :class:`WhileGraph`, a
+  sampler's trials a :class:`CapturedProgram`), and the interpolation
+  matrices between scales: the solve programs of the pyramid, CMax, GML
+  and the tiled solvers.
 
 Whatever a captured graph reads stays alive while the graph does: its
 buffers, the loops' state, and the operators it was built with (the
@@ -54,6 +64,7 @@ caches of ``ops/iwe.py`` and ``ops/poisson.py`` never drop an entry).
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import gc
 import time
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
@@ -63,7 +74,7 @@ import torch
 from . import kernels
 
 __all__ = ["WARMUP_STEPS", "eager_loops", "graph_route", "StepGraph",
-           "CapturedProgram", "KeptSolve"]
+           "WhileGraph", "CapturedProgram", "KeptSolve"]
 
 #: eager steps on the side stream before the capture
 WARMUP_STEPS = 2
@@ -149,11 +160,19 @@ def _count_replay(launches: Dict[str, int]) -> None:
         kernels.launches[name] += k
 
 
-def _on(stream: Optional["torch.cuda.Stream"]):
-    """Inside the block, ``stream`` is current (nothing on the CPU)."""
+@contextlib.contextmanager
+def _on(stream: Optional["torch.cuda.Stream"], device: torch.device):
+    """Inside the block ``stream`` is current, queued behind the current
+    stream's work; yields the stream that was current, which then waits
+    for ``stream``'s work (None and nothing on the CPU)."""
     if stream is None:
-        return contextlib.nullcontext()
-    return torch.cuda.stream(stream)
+        yield None
+        return
+    current = torch.cuda.current_stream(device)
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream):
+        yield current
+    current.wait_stream(stream)
 
 
 class StepGraph:
@@ -182,11 +201,7 @@ class StepGraph:
         stream waits for them."""
         if n <= 0:
             return
-        current = (torch.cuda.current_stream(self.device)
-                   if self._stream is not None else None)
-        if current is not None:
-            self._stream.wait_stream(current)
-        with _on(self._stream):
+        with _on(self._stream, self.device):
             done = 0
             if self.graph is None:
                 done = min(n, WARMUP_STEPS)
@@ -197,13 +212,145 @@ class StepGraph:
             for _ in range(n - done):
                 self.graph.replay()
                 _count_replay(self.launches)
-        if current is not None:
-            current.wait_stream(self._stream)
 
     def _capture(self) -> None:
         self.graph, self.launches, self.capture_ms = _recorded_capture(
             self.step, self.device)
         self.pool_bytes = self.graph.pool_bytes
+
+
+class _WhileCaptured:
+    """Three parts captured on the card (``torch.cuda.CUDAGraph`` with
+    ``keep_graph=True``, one memory pool, replayed in the order they were
+    captured: pre, body as often as the flag decides, post) and the parent
+    graph that ``csrc/graph_while.cu`` built of them.  The parts, their
+    pool and the flag stay alive until the parent is destroyed."""
+
+    def __init__(self, parts, flag: torch.Tensor, device: torch.device):
+        lib = kernels.library()
+        self.flag = flag
+        self.counter = kernels.device_counter("graph_while", device)
+        self.graphs: List = []
+        self.tallies: List[Dict[str, int]] = []
+        self._handle = None
+        before = torch.cuda.memory_reserved(device)
+        pool = torch.cuda.graph_pool_handle()
+        collecting = gc.isenabled()
+        gc.disable()  # as in :class:`_Captured`
+        try:
+            for part in parts:
+                graph = torch.cuda.CUDAGraph(keep_graph=True)
+                with kernels.recording() as tally:
+                    graph.capture_begin(pool=pool,
+                                        capture_error_mode="thread_local")
+                    try:
+                        part()
+                    except BaseException:
+                        with contextlib.suppress(Exception):
+                            graph.capture_end()
+                        raise
+                    graph.capture_end()
+                self.graphs.append(graph)
+                self.tallies.append(dict(tally))
+        finally:
+            if collecting:
+                gc.enable()
+        if self.tallies[1]:
+            raise RuntimeError(
+                f"a while loop's body launches the port's kernels "
+                f"{self.tallies[1]}: their count a launch would need a read "
+                f"of the trials")
+        self.pool_bytes = torch.cuda.memory_reserved(device) - before
+        handle = ctypes.c_void_p()
+        err = lib.ebt_while_build(
+            *(ctypes.c_void_p(g.raw_cuda_graph()) for g in self.graphs),
+            ctypes.c_void_p(flag.data_ptr()),
+            ctypes.c_void_p(self.counter.data_ptr()), ctypes.byref(handle))
+        if err != 0:
+            raise RuntimeError(
+                f"ebt_while_build failed with cudaError {err}: the CUDA "
+                f"runtime refused the conditional WHILE graph")
+        self._handle = handle
+        self._lib = lib
+        self.launches: Dict[str, int] = {}
+        for tally in (self.tallies[0], self.tallies[2]):
+            for name, k in tally.items():
+                self.launches[name] = self.launches.get(name, 0) + k
+
+    def replay(self) -> None:
+        stream = torch.cuda.current_stream(self.flag.device).cuda_stream
+        err = self._lib.ebt_while_launch(self._handle,
+                                         ctypes.c_void_p(stream))
+        if err != 0:
+            raise RuntimeError(f"ebt_while_launch failed with cudaError "
+                               f"{err}")
+
+    def __del__(self):
+        # the executable graph and the parent first, the parts after
+        if self._handle is not None:
+            self._lib.ebt_while_destroy(self._handle)
+            self._handle = None
+        self.graphs = []
+
+
+def _while_capture(parts, flag: torch.Tensor, device: torch.device):
+    """Capture ``parts = (pre, body, post)`` as one while graph; returns an
+    object with ``replay()`` (one launch: ``pre``, ``body`` until ``flag``,
+    at least once, ``post``), ``pool_bytes`` and ``launches`` (the port's
+    kernel launches of ``pre`` and ``post``, a replay)."""
+    return _WhileCaptured(parts, flag, device)
+
+
+class WhileGraph:
+    """Runs ``pre(); body() until flag; post()`` ``n`` times at a time on
+    the graph route: the counterpart of a ``lax.while_loop`` inside a
+    ``lax.scan``.
+
+    ``flag`` is a one-byte (bool) tensor on the device that ``body``
+    writes: nonzero stops the loop.  The three parts take no arguments
+    and work on the loop's state in place, as :class:`StepGraph`'s step
+    does.  The first :meth:`run` calls ``warmup()`` on the side stream (a
+    pass over the parts that builds the libraries' lazy state and leaves
+    the loop's state as it found it), captures the parts and builds the
+    parent graph (``csrc/graph_while.cu``); every iteration after is one
+    launch of it.  A capture or a build that fails raises: nothing falls
+    back to reading the flag on the host.  The body's iterations are
+    counted on the device (``kernels.device_launches("graph_while")``).
+    """
+
+    def __init__(self, pre: Callable[[], None], body: Callable[[], None],
+                 post: Callable[[], None], flag: torch.Tensor,
+                 device: torch.device,
+                 warmup: Optional[Callable[[], None]] = None):
+        self.parts = (pre, body, post)
+        self.flag = flag
+        self.device = device
+        self.warmup = warmup
+        self.graph = None
+        self.launches: Dict[str, int] = {}
+        self.capture_ms: Optional[float] = None
+        self.pool_bytes = 0
+        self._stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                        else None)
+
+    def run(self, n: int) -> None:
+        """``n`` iterations, queued behind the current stream's work; the
+        current stream waits for them."""
+        if n <= 0:
+            return
+        with _on(self._stream, self.device):
+            if self.graph is None:
+                if self.warmup is not None:
+                    self.warmup()
+                t0 = time.perf_counter()
+                self.graph = _while_capture(self.parts, self.flag,
+                                            self.device)
+                self.capture_ms = (time.perf_counter() - t0) * 1e3
+                self.launches = dict(self.graph.launches)
+                self.pool_bytes = self.graph.pool_bytes
+            for _ in range(n):
+                self.graph.replay()
+                _count_replay(self.launches)
 
 
 # ---------------------------------------------------------------------------
@@ -309,17 +456,12 @@ class _KeptCall:
         """The first call: ``fn`` on the buffers eagerly (its result is the
         call's, and the run builds the libraries' lazy state), then the
         capture, on a side stream that the current stream waits for."""
-        current = (torch.cuda.current_stream(self.device)
-                   if self._stream is not None else None)
-        if current is not None:
-            self._stream.wait_stream(current)
-        with _on(self._stream):
+        with _on(self._stream, self.device) as current:
             out = self.fn(*self.buffers)
             self.graph, self.launches, self.capture_ms = _recorded_capture(
                 self._record, self.device)
         self.pool_bytes = self.graph.pool_bytes
         if current is not None:
-            current.wait_stream(self._stream)
             for t in _leaves(out):
                 if torch.is_tensor(t):
                     # made on the side stream, used on the caller's
@@ -389,10 +531,13 @@ class CapturedProgram:
 
 class KeptSolve:
     """What a solve program keeps from frame to frame: the frame's
-    constants in buffers of its own, the solve's loops over them (each a
-    :class:`~event_based_bos_tpu_torch.optim.FirstOrderLoop`, whose step is
-    captured at its first run and replayed after) and the interpolation
-    matrices between scales.
+    constants in buffers of its own, the solve's loops over them (the
+    loops of :mod:`event_based_bos_tpu_torch.optim`: a first-order,
+    Nelder-Mead or Newton-CG loop, whose step is captured at its first run
+    and replayed after, an L-BFGS loop, whose iteration is a
+    :class:`WhileGraph`, or a sampler's program; each has a ``graph``
+    attribute, None before its capture) and the interpolation matrices
+    between scales.
 
     :meth:`bind` copies a frame's constants into the buffers; constants of
     another signature replace the buffers and drop the loops, and the
@@ -442,7 +587,7 @@ class KeptSolve:
         once): a loop and its graph refer to each other, so the collector
         would free them only at its next run."""
         for loop in self.loops:
-            loop.graph = None
+            loop.release()
 
     @property
     def capture_ms(self) -> List[float]:

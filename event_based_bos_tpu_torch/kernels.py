@@ -2,8 +2,11 @@
 
 The kernels live in ``csrc/*.cu`` with a plain C interface:
 ``csrc/hat_vote.cu`` (the bilinear event vote, entry point
-``ebt_vote``) and ``csrc/cmax_stencil.cu`` (the time-binned CMax
-stencil, ``ebt_cmax_stencil_fwd`` and ``ebt_cmax_stencil_bwd``).  At
+``ebt_vote``), ``csrc/cmax_stencil.cu`` (the time-binned CMax
+stencil, ``ebt_cmax_stencil_fwd`` and ``ebt_cmax_stencil_bwd``) and
+``csrc/graph_while.cu`` (a CUDA graph with a conditional WHILE node,
+``ebt_while_build``/``_launch``/``_destroy``, for
+:class:`event_based_bos_tpu_torch.graphs.WhileGraph`).  At
 first use each source is compiled by ``nvcc`` for ``sm_90a`` (all sources
 at once, one ``nvcc`` process each), linked into one shared library under the
 git-ignored ``build/kernels/`` directory beside the package, and loaded
@@ -15,7 +18,10 @@ per-kernel launch counter that each wrapper bumps through
 :func:`launched` exactly where it launches its kernel.  A launch made while
 its stream captures a CUDA graph is not a launch: the capture records it
 (:func:`recording`), and :mod:`event_based_bos_tpu_torch.graphs` adds the
-recorded launches once per replay of the graph.
+recorded launches once per replay of the graph.  The WHILE node's
+condition kernel runs as often as the data decides: it counts its own
+launches in a device counter (:func:`device_counter`), which
+:func:`device_launches` reads.
 """
 
 from __future__ import annotations
@@ -31,8 +37,9 @@ from contextlib import contextmanager
 from pathlib import Path
 from typing import Dict, Iterator, List, Optional
 
-__all__ = ["launches", "reset_launches", "launched", "recording", "build",
-           "load", "library", "NVCC_FLAGS"]
+__all__ = ["launches", "reset_launches", "launched", "recording",
+           "device_counter", "device_launches", "build", "load", "library",
+           "NVCC_FLAGS"]
 
 SOURCE_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -43,6 +50,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 launches: Dict[str, int] = {"hat_vote_image": 0, "cmax_stencil_fwd": 0,
                             "cmax_stencil_bwd": 0}
 
+#: kernel name → per-device launch counters that the kernel itself bumps
+#: (int64 tensors of one element on the card, see :func:`device_counter`)
+_device_counts: Dict[str, Dict[object, object]] = {"graph_while": {}}
+
 _lib: Optional[ctypes.CDLL] = None
 
 # the launches recorded by the capture under way (see :func:`recording`)
@@ -52,6 +63,29 @@ _tally: Optional[Dict[str, int]] = None
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    for counters in _device_counts.values():
+        for counter in counters.values():
+            counter.zero_()  # queued on the current stream, no read
+
+
+def device_counter(name: str, device):
+    """The device counter of kernel ``name`` on ``device``: one int64 that
+    the kernel adds one to at each of its launches (made once, never moved:
+    a captured graph holds its address)."""
+    import torch
+
+    device = torch.device(device)
+    counters = _device_counts[name]
+    if device not in counters:
+        counters[device] = torch.zeros((1,), dtype=torch.int64,
+                                       device=device)
+    return counters[device]
+
+
+def device_launches(name: str) -> int:
+    """Launches of kernel ``name`` since the last :func:`reset_launches`,
+    summed over its device counters (one read of each)."""
+    return sum(int(c.item()) for c in _device_counts[name].values())
 
 
 def launched(name: str) -> None:
@@ -162,7 +196,10 @@ def load(path: str) -> ctypes.CDLL:
                        ("ebt_cmax_stencil_fwd",
                         [p, p, p, i, i, i, i, i, p, p]),
                        ("ebt_cmax_stencil_bwd",
-                        [p, p, p, p, i, i, i, i, i, p, p, p])):
+                        [p, p, p, p, i, i, i, i, i, p, p, p]),
+                       ("ebt_while_build", [p, p, p, p, p, p]),
+                       ("ebt_while_launch", [p, p]),
+                       ("ebt_while_destroy", [p])):
         if hasattr(lib, name):
             fn = getattr(lib, name)
             fn.argtypes = args

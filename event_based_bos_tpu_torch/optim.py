@@ -6,28 +6,34 @@ over optax there):
   * :func:`run_first_order` (:class:`FirstOrderLoop`) — the torch-optimizer
     names of the reference, each written out as optax 0.2.6 computes it,
     with optax's staircase ``exponential_decay`` schedule and best-iterate
-    tracking.  The loop is one step function over state held in device
-    tensors, with **no host synchronisation**: on the card it is captured
-    once as a CUDA graph and replayed (:mod:`.graphs`, the counterpart of
-    the JAX package's jitted ``lax.scan``), on the CPU it runs in a Python
-    loop.  An objective that returns a vector of losses is a batch of
+    tracking.  An objective that returns a vector of losses is a batch of
     independent problems (one per leading row of ``x``): the gradient of
     their sum is each row's own gradient, and the best iterate is tracked
     per row.
-  * :func:`run_scipy_method` — the scipy names, per family:
-    quasi-Newton → :func:`run_lbfgs` (optax's L-BFGS with its zoom line
-    search), derivative-free → :func:`run_nelder_mead` (a branchless
-    simplex), Hessian/HVP → :func:`run_newton_cg` (CG on Hessian-vector
-    products of a double backward).
-  * :func:`run_sampler` — the random and grid samplers over a box, and the
-    two-stage stand-in the JAX package runs for ``TPE`` inside a batched
-    program (the sequential TPE study is :mod:`.tpe`).
+  * :func:`run_scipy_method` — the scipy names, per family
+    (:func:`scipy_loop`): quasi-Newton → :func:`run_lbfgs`
+    (:class:`LbfgsLoop`, optax's L-BFGS with its zoom line search),
+    derivative-free → :func:`run_nelder_mead` (:class:`NelderMeadLoop`, a
+    branchless simplex), Hessian/HVP → :func:`run_newton_cg`
+    (:class:`NewtonCgLoop`, CG on Hessian-vector products of a double
+    backward).
+  * :func:`run_sampler` (:class:`SamplerProgram`) — the random and grid
+    samplers over a box, and the two-stage stand-in the JAX package runs
+    for ``TPE`` inside a batched program (the sequential TPE study is
+    :mod:`.tpe`).
 
-The per-step scalars of the first-order methods depend only on the step
-index: they are tabulated once per loop on the device and read by the step
-from its counter.  The zoom line search's loop depends on the data: its
-scalars live on the host in float64 and each of its function evaluations
-is one host read (``OptResult.host_reads`` counts them).
+Every loop is a step function over state held in device tensors, with
+**no host synchronisation**: on the card it is captured once as a CUDA
+graph and replayed (:mod:`.graphs`, the counterpart of the JAX package's
+jitted ``lax.scan``), on the CPU it runs in a Python loop.  The per-step
+scalars of the first-order methods depend only on the step index: they are
+tabulated once per loop on the device and read by the step from its
+counter.  The zoom line search's loop depends on the data: on the card it
+is the conditional WHILE node of a :class:`~.graphs.WhileGraph` (the
+counterpart of ``lax.while_loop``), which reads its stop flag on the
+device; on the CPU each trial reads the flag (``OptResult.host_reads``
+counts those reads).  The samplers' trials and argmin are one
+:class:`~.graphs.CapturedProgram` of the random draws.
 """
 
 from __future__ import annotations
@@ -41,11 +47,14 @@ import numpy as np
 import torch
 
 from . import graphs
+from .device import resolve_device
 
 __all__ = ["OptResult", "Adam", "AdamW", "NAdam", "Adamax", "RAdam",
            "Adagrad", "Adadelta", "RMSprop", "SGD", "make_optimizer",
-           "FirstOrderLoop", "run_first_order", "run_lbfgs",
-           "run_nelder_mead", "run_newton_cg", "run_scipy_method", "run_sampler", "FIRST_ORDER_METHODS",
+           "FirstOrderLoop", "run_first_order", "LbfgsLoop", "run_lbfgs",
+           "NelderMeadLoop", "run_nelder_mead", "NewtonCgLoop",
+           "run_newton_cg", "scipy_loop", "run_scipy_method",
+           "SamplerProgram", "run_sampler", "FIRST_ORDER_METHODS",
            "QUASI_NEWTON_METHODS", "DERIVATIVE_FREE_METHODS",
            "HESSIAN_METHODS", "SCIPY_METHODS", "SAMPLER_METHODS"]
 
@@ -343,7 +352,18 @@ def _rows(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return mask.reshape(mask.shape + (1,) * (x.dim() - mask.dim()))
 
 
-class FirstOrderLoop:
+class _GraphLoop:
+    """A loop that keeps the graph of its first run on the card in
+    :attr:`graph` (None before it, and on the CPU)."""
+
+    def release(self) -> None:
+        """Drop the graph and its memory pool now (a loop used once): a
+        loop and its graph refer to each other, so the collector would
+        free them only at its next run."""
+        self.graph = None
+
+
+class FirstOrderLoop(_GraphLoop):
     """A first-order solve of ``objective``: its loop state, its step and
     its route, reusable for further solves of the same shapes.
 
@@ -450,12 +470,7 @@ class FirstOrderLoop:
 
     def _reset(self, x0: torch.Tensor) -> None:
         c = self._c
-        if (x0.shape != c.x.shape or x0.dtype != c.x.dtype
-                or x0.device != c.x.device):
-            raise ValueError(
-                f"this loop solves for a {tuple(c.x.shape)} {c.x.dtype} "
-                f"iterate on {c.x.device}, got {tuple(x0.shape)} "
-                f"{x0.dtype} on {x0.device}")
+        _check_iterate(c.x, x0)
         c.x.copy_(x0)
         for k, v in self.opt.init(c.x).items():
             c.state[k].copy_(v)
@@ -544,14 +559,9 @@ def run_first_order(objective: Callable, x0: torch.Tensor, n_iter: int,
     One :class:`FirstOrderLoop`, run once: on the card its step is captured
     and replayed, on the CPU it runs in a Python loop.
     """
-    loop = FirstOrderLoop(objective, n_iter, method, lr, lr_decay, lr_step,
-                          track_best, has_aux, bounds, record_every)
-    try:
-        return loop.run(x0)
-    finally:
-        # the loop and its graph refer to each other: drop the graph (and
-        # its memory pool) now, not when the collector next runs
-        loop.graph = None
+    return _run_once(FirstOrderLoop(objective, n_iter, method, lr, lr_decay,
+                                    lr_step, track_best, has_aux, bounds,
+                                    record_every), x0)
 
 
 # ---------------------------------------------------------------------------
@@ -566,61 +576,56 @@ def _value_and_grad(objective, x):
     return loss.detach(), grad
 
 
-def _host_pair(a: torch.Tensor, b: torch.Tensor):
-    """Two device scalars as float64 numbers, in one copy to the host."""
-    v = torch.stack([a.to(torch.float64), b.to(torch.float64)]).cpu().numpy()
-    return np.float64(v[0]), np.float64(v[1])
+def _flat_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.dot(a.reshape(-1), b.reshape(-1))
 
 
-def _lbfgs_direction(grad, x, mem, memory_size: int):
+def _lbfgs_direction(grad, x, c, memory_size: int):
     """optax ``scale_by_lbfgs`` (scaled initial preconditioner): update the
     memory with the last step's differences, return ``P_k · grad``.
-    ``mem`` holds the device state and is updated in place."""
-    count = mem["count"]
+
+    ``c`` holds the device state: the memory ``dp``, ``du``, ``rho``, the
+    last iterate and gradient ``params``, ``updates``, the ring ``ring``
+    (``arange(memory_size)``) and the iteration counter ``count``; the
+    memory and the last iterate are updated in place (the counter is the
+    caller's).  The first iteration (``count = 0``) is selected on the
+    device: it leaves the differences as they are and scales by a capped
+    reciprocal of the gradient norm."""
+    count = c.count
     memory_idx = count % memory_size
     prev_idx = (count - 1) % memory_size
-    if count > 0:
-        diff_p = x - mem["params"]
-        diff_u = grad - mem["updates"]
-        vdot = torch.dot(diff_u.reshape(-1), diff_p.reshape(-1))
-        weight = torch.where(vdot == 0.0, 0.0, 1.0 / vdot)
-        mem["dp"][prev_idx] = diff_p
-        mem["du"][prev_idx] = diff_u
-        mem["rho"][prev_idx] = weight
-        num = torch.dot(diff_u.reshape(-1), diff_p.reshape(-1))
-        den = torch.sum(diff_u * diff_u)
-        scale = torch.where(den > 0.0, num / den, 1.0)
-    else:
-        # the first step: a capped reciprocal of the gradient norm
-        scale = torch.clamp(1.0 / torch.sqrt(torch.sum(grad * grad)),
-                            max=1.0)
-        mem["rho"][prev_idx] = 0.0
-    indices = [(memory_idx + j) % memory_size for j in range(memory_size)]
+    started = (count > 0)[0]
+    diff_p = x - c.params
+    diff_u = grad - c.updates
+    vdot = _flat_dot(diff_u, diff_p)
+    weight = torch.where(vdot == 0.0, 0.0, 1.0 / vdot)
+    c.dp.index_copy_(0, prev_idx, torch.where(
+        started, diff_p, c.dp.index_select(0, prev_idx)[0])[None])
+    c.du.index_copy_(0, prev_idx, torch.where(
+        started, diff_u, c.du.index_select(0, prev_idx)[0])[None])
+    c.rho.index_copy_(0, prev_idx, torch.where(started, weight, 0.0)[None])
+    num = _flat_dot(diff_u, diff_p)
+    den = torch.sum(diff_u * diff_u)
+    scale = torch.where(
+        started, torch.where(den > 0.0, num / den, 1.0),
+        torch.clamp(1.0 / torch.sqrt(torch.sum(grad * grad)), max=1.0))
+    ring = (memory_idx + c.ring) % memory_size
+    slots = [ring[j:j + 1] for j in range(memory_size)]
     vec = grad
-    alphas = {}
-    for idx in reversed(indices):
-        alpha = mem["rho"][idx] * torch.dot(mem["dp"][idx].reshape(-1),
-                                            vec.reshape(-1))
-        vec = vec - alpha * mem["du"][idx]
-        alphas[idx] = alpha
+    alphas = [None] * memory_size
+    for j in reversed(range(memory_size)):
+        rho = c.rho.index_select(0, slots[j])[0]
+        alpha = rho * _flat_dot(c.dp.index_select(0, slots[j])[0], vec)
+        vec = vec - alpha * c.du.index_select(0, slots[j])[0]
+        alphas[j] = alpha
     vec = scale * vec
-    for idx in indices:
-        beta = mem["rho"][idx] * torch.dot(mem["du"][idx].reshape(-1),
-                                           vec.reshape(-1))
-        vec = vec + (alphas[idx] - beta) * mem["dp"][idx]
-    mem["count"] = count + 1
-    mem["params"], mem["updates"] = x, grad
+    for j in range(memory_size):
+        rho = c.rho.index_select(0, slots[j])[0]
+        beta = rho * _flat_dot(c.du.index_select(0, slots[j])[0], vec)
+        vec = vec + (alphas[j] - beta) * c.dp.index_select(0, slots[j])[0]
+    c.params.copy_(x)
+    c.updates.copy_(grad)
     return vec
-
-
-def _max_nan(a, b):
-    """``jnp.maximum`` of two numbers: NaN if either is NaN."""
-    return np.maximum(np.float64(a), np.float64(b))
-
-
-def _min_nan(a, b):
-    """``jnp.minimum`` of two numbers: NaN if either is NaN."""
-    return np.minimum(np.float64(a), np.float64(b))
 
 
 def _cubicmin(a, fa, fpa, b, fb, c, fc):
@@ -635,7 +640,7 @@ def _cubicmin(a, fa, fpa, b, fb, c, fc):
     A = (dc ** 2 * v0 + -(db ** 2) * v1) / denom
     B = (-(dc ** 3) * v0 + db ** 3 * v1) / denom
     radical = B * B - 3.0 * A * C
-    return a + (-B + np.sqrt(radical)) / (3.0 * A)
+    return a + (-B + torch.sqrt(radical)) / (3.0 * A)
 
 
 def _quadmin(a, fa, fpa, b, fb):
@@ -646,112 +651,280 @@ def _quadmin(a, fa, fpa, b, fb):
     return a - fpa / (2.0 * B)
 
 
-def _zoom_linesearch(objective, x, direction, value, slope,
-                     max_steps: int = 20, slope_rtol: float = 1e-4,
-                     curv_rtol: float = 0.9, approx_dec_rtol: float = 1e-6,
-                     increase_factor: float = 2.0,
-                     interval_threshold: float = 1e-5):
-    """optax ``zoom_linesearch`` (interval search, then zoom by cubic,
-    quadratic or bisection steps; ``tol = 0``, no maximal step size, first
-    guess 1) from ``value`` and ``slope`` at ``x`` along ``direction``.
-    Returns ``(stepsize, host_reads)``: each trial step is one evaluation
-    and one read of its value and slope."""
-    f64 = np.float64
-    value_init, slope_init = f64(value), f64(slope)
-    reads = 0
+#: the zoom line search's scalars, in the order of :class:`LbfgsLoop`'s
+#: state vector (``interval_found`` is 0 or 1)
+_LS_FIELDS = ("count", "stepsize", "value", "slope", "interval_found", "low",
+              "value_low", "slope_low", "high", "value_high", "slope_high",
+              "cubic_ref", "value_cubic_ref", "safe_stepsize", "safe_value",
+              "value_init", "slope_init")
+_COUNT, _STEPSIZE = _LS_FIELDS.index("count"), _LS_FIELDS.index("stepsize")
 
-    def on_line(stepsize):
-        nonlocal reads
-        v, g = _value_and_grad(objective, x + stepsize * direction)
-        reads += 1
-        return _host_pair(v, torch.dot(g.reshape(-1), direction.reshape(-1)))
 
-    def errors(stepsize, v, s):
-        dec = v - value_init - slope_rtol * stepsize * slope_init
-        approx = _max_nan(s - (2 * slope_rtol - 1.0) * slope_init,
-                         v - value_init - approx_dec_rtol * abs(value_init))
-        dec = _max_nan(_min_nan(approx, dec), f64(0.0))
-        dec = f64(np.inf) if np.isnan(dec) else dec
-        curv = _max_nan(abs(s) - curv_rtol * abs(slope_init), f64(0.0))
-        curv = f64(np.inf) if np.isnan(curv) else curv
-        return dec, curv
+def _pick(cond, new, old):
+    """``where(cond, new, old)`` over parallel tuples of scalars."""
+    return tuple(torch.where(cond, a, b) for a, b in zip(new, old))
 
-    st = dict(count=0, stepsize=f64(0.0), value=value_init,
-              slope=slope_init,
-              interval_found=False, low=f64(0.0), value_low=value_init,
-              slope_low=slope_init, high=f64(0.0), value_high=value_init,
-              slope_high=slope_init, cubic_ref=f64(0.0),
-              value_cubic_ref=value_init, safe_stepsize=f64(0.0),
-              safe_value=value_init)
-    with np.errstate(all="ignore"):
+
+class LbfgsLoop(_GraphLoop):
+    """optax ``lbfgs(memory_size=10)`` with its zoom line search (at most
+    ``max_steps`` trials an iteration, first guess 1) and
+    best-iterate tracking, as a loop over device state, reusable for
+    further solves of the same shapes.
+
+    An iteration has three parts, each a function of the state alone:
+
+      * :meth:`_pre` — the value and gradient at ``x``, the direction
+        (:func:`_lbfgs_direction`), its slope, the history and the best
+        iterate, and the line search's start;
+      * :meth:`_trial` — one trial of optax's ``zoom_linesearch``: the
+        interval search or the zoom (cubic, quadratic or bisection step),
+        chosen on the device, the evaluation at the trial step, the
+        bookkeeping of the bracket and of the safe step, and the flag
+        ``done or failed``; a failed search steps by the safe step when
+        there is one or when the decrease error is infinite;
+      * :meth:`_post` — the step, the projection onto ``bounds`` and the
+        trial count.
+
+    The line search's scalars are in the iterate's dtype, as optax keeps
+    them.  On the card the three parts are a
+    :class:`~event_based_bos_tpu_torch.graphs.WhileGraph` (the trials a
+    conditional WHILE node of one CUDA graph, one launch an iteration, no
+    read to the host); on the CPU and inside
+    :func:`~event_based_bos_tpu_torch.graphs.eager_loops` the same trial
+    runs in a Python loop that reads the flag after each trial (one host
+    read a trial).  :meth:`run` returns copies of the outputs.
+    """
+
+    #: optax's ``zoom_linesearch`` as ``lbfgs`` sets it (``tol = 0``, no
+    #: maximal step size)
+    max_steps, increase_factor, interval_threshold = 20, 2.0, 1e-5
+    slope_rtol, curv_rtol, approx_dec_rtol = 1e-4, 0.9, 1e-6
+
+    def __init__(self, objective: Callable, n_iter: int,
+                 memory_size: int = 10,
+                 bounds: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        self.objective = objective
+        self.n_iter = n_iter
+        self.memory_size = memory_size
+        self.bounds = bounds
+        self.graph: Optional[graphs.WhileGraph] = None
+        self._c: Optional[SimpleNamespace] = None
+
+    # -- the parts -----------------------------------------------------------
+    def _pre(self) -> None:
+        c = self._c
+        loss, grad = _value_and_grad(self.objective, c.x)
+        loss = loss.to(c.x.dtype)
+        direction = -_lbfgs_direction(grad, c.x, c, self.memory_size)
+        slope = _flat_dot(direction, grad)
+        c.history.index_copy_(0, c.count, loss[None])
+        better = loss < c.best_loss
+        c.best_x.copy_(torch.where(better, c.x, c.best_x))
+        c.best_it.copy_(torch.where(better, c.count.to(torch.int32)[0],
+                                    c.best_it))
+        c.best_loss.copy_(torch.minimum(loss, c.best_loss))
+        c.direction.copy_(direction)
+        zero = torch.zeros_like(loss)
+        start = dict(count=zero, stepsize=zero, value=loss, slope=slope,
+                     interval_found=zero, low=zero, value_low=loss,
+                     slope_low=slope, high=zero, value_high=loss,
+                     slope_high=slope, cubic_ref=zero, value_cubic_ref=loss,
+                     safe_stepsize=zero, safe_value=loss, value_init=loss,
+                     slope_init=slope)
+        c.ls.copy_(torch.stack([start[k] for k in _LS_FIELDS]))
+
+    def _trial(self) -> None:
+        c = self._c
+        slope_rtol, curv_rtol = self.slope_rtol, self.curv_rtol
+        s = dict(zip(_LS_FIELDS, c.ls.unbind()))
+        count, found = s["count"], s["interval_found"] != 0
+        value_init, slope_init = s["value_init"], s["slope_init"]
+        prev = (s["stepsize"], s["value"], s["slope"])
+        low = (s["low"], s["value_low"], s["slope_low"])
+        high = (s["high"], s["value_high"], s["slope_high"])
+        # the interval search's guess: 1, then twice the last step
+        guess = torch.where(count == 0, 1.0, self.increase_factor * prev[0])
+        # the zoom's: the cubic's or the quadratic's minimum well inside
+        # the bracket, else its middle
+        delta = torch.abs(high[0] - low[0])
+        left = torch.minimum(high[0], low[0])
+        right = torch.maximum(high[0], low[0])
+        cubic = _cubicmin(*low, *high[:2], s["cubic_ref"],
+                          s["value_cubic_ref"])
+        use_cubic = ((cubic > left + 0.2 * delta)
+                     & (cubic < right - 0.2 * delta))
+        quad = _quadmin(*low, *high[:2])
+        use_quad = (~use_cubic & (quad > left + 0.1 * delta)
+                    & (quad < right - 0.1 * delta))
+        middle = torch.where(use_cubic, cubic, torch.where(
+            use_quad, quad, (low[0] + high[0]) / 2.0))
+        new = torch.where(found, middle, guess)
+
+        v, g = _value_and_grad(self.objective, c.x + new * c.direction)
+        v = v.to(c.x.dtype)
+        sl = _flat_dot(g, c.direction)
+        trial = (new, v, sl)
+        dec = v - value_init - slope_rtol * new * slope_init
+        approx = torch.maximum(
+            sl - (2 * slope_rtol - 1.0) * slope_init,
+            v - value_init - self.approx_dec_rtol * torch.abs(value_init))
+        zero = torch.zeros_like(v)
+        dec = torch.maximum(torch.minimum(approx, dec), zero)
+        dec = torch.where(torch.isnan(dec), math.inf, dec)
+        curv = torch.maximum(
+            torch.abs(sl) - curv_rtol * torch.abs(slope_init), zero)
+        curv = torch.where(torch.isnan(curv), math.inf, curv)
+        done = torch.maximum(dec, curv) <= 0.0
+        last = count + 1 >= self.max_steps
+        # the safe step: sufficient decrease (and, zooming, a lower value)
+        take_safe = (dec <= 0.0) & (~found | (v < s["safe_value"]))
+        safe, safe_value = _pick(take_safe, (new, v),
+                                 (s["safe_stepsize"], s["safe_value"]))
+
+        # the interval search's bracket
+        set_high = (dec > 0.0) | ((v >= prev[1]) & (count > 0))
+        set_low = (sl >= 0.0) & ~set_high
+        s_low = _pick(set_low, trial, prev)
+        s_high = _pick(set_low, prev, trial)
+        s_found = set_high | set_low | done
+        s_failed = last & ~done
+        # the zoom's bracket
+        high_mid = (dec > 0.0) | (v >= low[1])
+        high_low = (sl * (high[0] - low[0]) >= 0.0) & ~high_mid
+        z_high = _pick(high_low, low, _pick(high_mid, trial, high))
+        z_low = _pick(high_mid, low, trial)
+        z_ref = _pick(high_mid | high_low, high[:2], low[:2])
+        z_failed = (last | ((delta <= self.interval_threshold)
+                             & (safe > 0.0))) & ~done
+
+        new_low = _pick(found, z_low, s_low)
+        new_high = _pick(found, z_high, s_high)
+        ref = _pick(found, z_ref, s_low[:2])
+        failed = torch.where(found, z_failed, s_failed)
+        # a failed search: the safe step when there is one (or when no step
+        # has a finite decrease error)
+        stepsize = torch.where(failed & ((safe > 0.0) | torch.isinf(dec)),
+                               safe, new)
+        out = dict(count=count + 1, stepsize=stepsize, value=v, slope=sl,
+                   interval_found=(found | s_found).to(v.dtype),
+                   low=new_low[0], value_low=new_low[1],
+                   slope_low=new_low[2], high=new_high[0],
+                   value_high=new_high[1], slope_high=new_high[2],
+                   cubic_ref=ref[0], value_cubic_ref=ref[1],
+                   safe_stepsize=safe, safe_value=safe_value,
+                   value_init=value_init, slope_init=slope_init)
+        c.ls.copy_(torch.stack([out[k] for k in _LS_FIELDS]))
+        c.flag.copy_(done | failed)
+
+    def _post(self) -> None:
+        c = self._c
+        x = c.x + c.ls[_STEPSIZE] * c.direction
+        if self.bounds is not None:
+            x = torch.clamp(x, self.bounds[0], self.bounds[1])
+        c.ls_trials.index_copy_(0, c.count,
+                                c.ls[_COUNT:_COUNT + 1].to(torch.int32))
+        c.x.copy_(x)
+        c.count.add_(1)
+
+    def _iterate_eagerly(self) -> int:
+        """One iteration with the trials in a Python loop; returns the
+        trials (each one read of the flag)."""
+        self._pre()
+        trials = 0
         while True:
-            it = st["count"]
-            if not st["interval_found"]:
-                new = (f64(1.0) if it == 0
-                       else increase_factor * st["stepsize"])
-                v, s = on_line(new)
-                dec, curv = errors(new, v, s)
-                error = _max_nan(dec, curv)
-                if dec <= 0.0:
-                    st["safe_stepsize"], st["safe_value"] = new, v
-                set_high = (dec > 0.0) or (v >= st["value"] and it > 0)
-                set_low = (s >= 0.0) and not set_high
-                prev = (st["stepsize"], st["value"], st["slope"])
-                if set_low:
-                    lo_, hi_ = (new, v, s), prev
-                else:
-                    lo_, hi_ = prev, (new, v, s)
-                st["low"], st["value_low"], st["slope_low"] = lo_
-                st["high"], st["value_high"], st["slope_high"] = hi_
-                st["cubic_ref"], st["value_cubic_ref"] = lo_[0], lo_[1]
-                st["interval_found"] = bool(set_high or set_low
-                                            or error <= 0.0)
-                done = error <= 0.0
-                failed = (it + 1 >= max_steps) and not done
-            else:
-                low, high = st["low"], st["high"]
-                vlow, vhigh = st["value_low"], st["value_high"]
-                delta = abs(high - low)
-                left, right = _min_nan(high, low), _max_nan(high, low)
-                cubic = _cubicmin(low, vlow, st["slope_low"], high, vhigh,
-                                  st["cubic_ref"], st["value_cubic_ref"])
-                use_cubic = (cubic > left + 0.2 * delta
-                             and cubic < right - 0.2 * delta)
-                quad = _quadmin(low, vlow, st["slope_low"], high, vhigh)
-                use_quad = (not use_cubic and quad > left + 0.1 * delta
-                            and quad < right - 0.1 * delta)
-                new = (cubic if use_cubic else quad if use_quad
-                       else (low + high) / 2.0)
-                v, s = on_line(new)
-                dec, curv = errors(new, v, s)
-                error = _max_nan(dec, curv)
-                if dec <= 0.0 and v < st["safe_value"]:
-                    st["safe_stepsize"], st["safe_value"] = new, v
-                done = error <= 0.0
-                set_high_mid = (dec > 0.0) or (v >= vlow)
-                set_high_low = (s * (high - low) >= 0.0) and not set_high_mid
-                hi_ = (new, v, s) if set_high_mid else (
-                    high, vhigh, st["slope_high"])
-                if set_high_low:
-                    hi_ = (low, vlow, st["slope_low"])
-                lo_ = (low, vlow, st["slope_low"]) if set_high_mid else (
-                    new, v, s)
-                if set_high_mid or set_high_low:
-                    st["cubic_ref"], st["value_cubic_ref"] = high, vhigh
-                else:
-                    st["cubic_ref"], st["value_cubic_ref"] = low, vlow
-                st["low"], st["value_low"], st["slope_low"] = lo_
-                st["high"], st["value_high"], st["slope_high"] = hi_
-                failed = ((it + 1 >= max_steps)
-                          or (delta <= interval_threshold
-                              and st["safe_stepsize"] > 0.0)) and not done
-            st.update(count=it + 1, stepsize=new, value=v, slope=s)
-            if failed:
-                # the best step with sufficient decrease, if any
-                if st["safe_stepsize"] > 0.0 or np.isinf(dec):
-                    st["stepsize"] = st["safe_stepsize"]
-            if done or failed:
-                return float(st["stepsize"]), reads
+            self._trial()
+            trials += 1
+            if bool(self._c.flag):
+                break
+        self._post()
+        return trials
+
+    def _warm_up(self) -> None:
+        """Each part once, then the state as it was: the libraries' lazy
+        state is built outside the capture, and the solve is unchanged."""
+        saved = {k: v.clone() for k, v in vars(self._c).items()}
+        self._pre()
+        self._trial()
+        self._post()
+        for k, v in saved.items():
+            getattr(self._c, k).copy_(v)
+
+    # -- state ---------------------------------------------------------------
+    def _allocate(self, x0: torch.Tensor) -> None:
+        x = x0.detach().clone()
+        dev, dt, n, m = x.device, x.dtype, self.n_iter, self.memory_size
+        memory = torch.zeros((m,) + tuple(x.shape), dtype=dt, device=dev)
+        self._c = SimpleNamespace(
+            x=x, direction=torch.zeros_like(x), dp=memory,
+            du=torch.zeros_like(memory),
+            rho=torch.zeros((m,), dtype=dt, device=dev),
+            params=torch.zeros_like(x), updates=torch.zeros_like(x),
+            ring=torch.arange(m, device=dev), best_x=x.clone(),
+            best_loss=torch.full((), math.inf, dtype=dt, device=dev),
+            best_it=torch.zeros((), dtype=torch.int32, device=dev),
+            history=torch.zeros((n,), dtype=dt, device=dev),
+            ls_trials=torch.zeros((n,), dtype=torch.int32, device=dev),
+            ls=torch.zeros((len(_LS_FIELDS),), dtype=dt, device=dev),
+            flag=torch.zeros((), dtype=torch.bool, device=dev),
+            count=torch.zeros((1,), dtype=torch.int64, device=dev))
+
+    def _reset(self, x0: torch.Tensor) -> None:
+        c = self._c
+        _check_iterate(c.x, x0)
+        c.x.copy_(x0)
+        c.best_x.copy_(x0)
+        for t in (c.dp, c.du, c.rho, c.params, c.updates, c.best_it,
+                  c.count):
+            t.zero_()
+        c.best_loss.fill_(math.inf)
+
+    # -- the solve -----------------------------------------------------------
+    def run(self, x0: torch.Tensor) -> OptResult:
+        """``n_iter`` iterations from ``x0``; returns copies of the outputs
+        (see :func:`run_lbfgs`)."""
+        if self._c is None:
+            self._allocate(x0)
+        else:
+            self._reset(x0.detach())
+        dev = self._c.x.device
+        reads = 0
+        if self.n_iter > 0 and graphs.graph_route(dev):
+            if self.graph is None:
+                self.graph = graphs.WhileGraph(
+                    self._pre, self._trial, self._post, self._c.flag, dev,
+                    warmup=self._warm_up)
+            self.graph.run(self.n_iter)
+        else:
+            for _ in range(self.n_iter):
+                reads += self._iterate_eagerly()
+        return self._result(reads)
+
+    def _result(self, reads: int) -> OptResult:
+        c = self._c
+        with torch.no_grad():
+            final = self.objective(c.x).to(c.x.dtype)
+        use_final = final < c.best_loss
+        return OptResult(
+            param=torch.where(use_final, c.x, c.best_x),
+            loss=torch.minimum(final, c.best_loss),
+            best_iter=torch.where(use_final, self.n_iter - 1, c.best_it),
+            history=c.history.clone(), last_param=c.x.clone(),
+            host_reads=reads, ls_trials=c.ls_trials.clone())
+
+
+def _check_iterate(x: torch.Tensor, x0: torch.Tensor) -> None:
+    if x0.shape != x.shape or x0.dtype != x.dtype or x0.device != x.device:
+        raise ValueError(
+            f"this loop solves for a {tuple(x.shape)} {x.dtype} iterate on "
+            f"{x.device}, got {tuple(x0.shape)} {x0.dtype} on {x0.device}")
+
+
+def _run_once(loop, x0: torch.Tensor) -> OptResult:
+    """``loop.run(x0)``, its graph (and memory pool) released after."""
+    try:
+        return loop.run(x0)
+    finally:
+        loop.release()
 
 
 def run_lbfgs(objective: Callable, x0: torch.Tensor, n_iter: int = 100,
@@ -759,51 +932,16 @@ def run_lbfgs(objective: Callable, x0: torch.Tensor, n_iter: int = 100,
               bounds: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
               ) -> OptResult:
     """optax ``lbfgs(memory_size=10)`` with its zoom line search (at most 20
-    evaluations a step, first guess 1) and best-iterate tracking.
+    evaluations a step, first guess 1) and best-iterate tracking: one
+    :class:`LbfgsLoop`, run once.
 
-    ``bounds = (lo, hi)`` projects every iterate onto the box.  The line
-    search runs on the host from one read per evaluation; each iteration
-    also reads its loss and slope (``host_reads`` counts every read).
+    ``bounds = (lo, hi)`` projects every iterate onto the box.  The result
+    holds ``ls_trials``, the line search's trials of each iteration
+    (``[n_iter]`` int32, counted on the device), and ``host_reads``, the
+    reads of the route: 0 on the card, one a trial on the CPU and inside
+    :func:`~event_based_bos_tpu_torch.graphs.eager_loops`.
     """
-    dev, dt = x0.device, x0.dtype
-    x = x0.detach().clone()
-    mem = {"count": 0,
-           "dp": torch.zeros((memory_size,) + tuple(x.shape), dtype=dt,
-                             device=dev),
-           "du": torch.zeros((memory_size,) + tuple(x.shape), dtype=dt,
-                             device=dev),
-           "rho": torch.zeros((memory_size,), dtype=dt, device=dev)}
-    losses = []
-    best_x, best_loss, best_it = x, np.float64(np.inf), 0
-    reads = 0
-    for it in range(n_iter):
-        loss, grad = _value_and_grad(objective, x)
-        direction = -_lbfgs_direction(grad, x, mem, memory_size)
-        value, slope = _host_pair(loss, torch.dot(direction.reshape(-1),
-                                                  grad.reshape(-1)))
-        reads += 1
-        losses.append(value)
-        if value < best_loss:
-            best_x, best_it = x, it
-        best_loss = _min_nan(value, best_loss)
-        stepsize, n = _zoom_linesearch(objective, x, direction, value, slope)
-        reads += n
-        x = x + stepsize * direction
-        if bounds is not None:
-            x = torch.clamp(x, bounds[0], bounds[1])
-    with torch.no_grad():
-        final = float(objective(x))
-    reads += 1
-    use_final = final < best_loss
-    history = torch.tensor(losses, dtype=torch.float64).to(device=dev,
-                                                           dtype=dt)
-    return OptResult(
-        param=x if use_final else best_x,
-        loss=torch.tensor(float(_min_nan(final, best_loss)), dtype=dt,
-                          device=dev),
-        best_iter=torch.tensor(n_iter - 1 if use_final else best_it,
-                               dtype=torch.int32, device=dev),
-        history=history, last_param=x, host_reads=reads)
+    return _run_once(LbfgsLoop(objective, n_iter, memory_size, bounds), x0)
 
 
 # ---------------------------------------------------------------------------
@@ -816,52 +954,74 @@ def _evaluate(objective, xs: torch.Tensor) -> torch.Tensor:
         return torch.stack([objective(x) for x in xs])
 
 
-def run_nelder_mead(objective: Callable, x0: torch.Tensor, n_iter: int = 100,
-                    bounds: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                    ) -> OptResult:
-    """Derivative-free Nelder-Mead simplex, branchless, on the device.
+def _row(t: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``t[index]`` for a 0-d index tensor, with no read to the host."""
+    return t.index_select(0, index.reshape(1))[0]
+
+
+def _projector(bounds):
+    if bounds is None:
+        return lambda x: x
+    return lambda x: torch.clamp(x, bounds[0], bounds[1])
+
+
+class NelderMeadLoop(_GraphLoop):
+    """Derivative-free Nelder-Mead simplex, branchless, as a loop over
+    device state (the simplex, its values, the history and a step
+    counter), reusable for further solves of the same shapes.
 
     Standard coefficients (ρ=1, χ=2, ψ=0.5, σ=0.5) and scipy's initial
     simplex (x0 ± 5 % per coordinate, 0.00025 for zero coordinates; with
-    ``bounds``, toward whichever side of the box moves).  Every iteration
-    evaluates reflection, expansion, both contractions and the shrunk
-    simplex and selects with ``where``; the simplex is ordered with a
-    stable sort, so ties keep their order.
+    ``bounds``, toward whichever side of the box moves).  Every step
+    (:meth:`_step`) evaluates reflection, expansion, both contractions and
+    the shrunk simplex and selects with ``where``; the simplex is ordered
+    with a stable sort, so ties keep their order.  The initial simplex is
+    evaluated at :meth:`run`; the steps run as a
+    :class:`~event_based_bos_tpu_torch.graphs.StepGraph` on the card (op by
+    op inside :func:`~event_based_bos_tpu_torch.graphs.eager_loops`), in a
+    Python loop on the CPU.
     """
-    d = x0.shape[0]
-    rho, chi, psi, sigma = 1.0, 2.0, 0.5, 0.5
 
-    def project(x):
-        return (torch.clamp(x, bounds[0], bounds[1]) if bounds is not None
-                else x)
+    def __init__(self, objective: Callable, n_iter: int,
+                 bounds: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        self.objective = objective
+        self.n_iter = n_iter
+        self.project = _projector(bounds)
+        self.bounds = bounds
+        self.graph: Optional[graphs.StepGraph] = None
+        self._c: Optional[SimpleNamespace] = None
 
-    x0 = project(x0.detach())
-    pert = torch.where(x0 != 0, x0 * 0.05, 0.00025)
-    if bounds is not None:
-        up = torch.clamp(x0 + pert, bounds[0], bounds[1])
-        down = torch.clamp(x0 - pert, bounds[0], bounds[1])
-        diag_vals = torch.where(torch.abs(up - x0) > 0, up, down)
-    else:
-        diag_vals = x0 + pert
-    vertices = x0.repeat(d, 1)
-    idx = torch.arange(d, device=x0.device)
-    vertices[idx, idx] = diag_vals
-    simplex = torch.cat([x0[None], vertices], dim=0)
-    fvals = _evaluate(objective, simplex)
-    history = torch.empty((n_iter,), dtype=fvals.dtype, device=x0.device)
+    def _simplex(self, x0: torch.Tensor) -> torch.Tensor:
+        d = x0.shape[0]
+        x0 = self.project(x0.detach())
+        pert = torch.where(x0 != 0, x0 * 0.05, 0.00025)
+        if self.bounds is not None:
+            up = self.project(x0 + pert)
+            down = self.project(x0 - pert)
+            diag_vals = torch.where(torch.abs(up - x0) > 0, up, down)
+        else:
+            diag_vals = x0 + pert
+        vertices = x0.repeat(d, 1)
+        idx = torch.arange(d, device=x0.device)
+        vertices[idx, idx] = diag_vals
+        return torch.cat([x0[None], vertices], dim=0)
 
-    for it in range(n_iter):
-        order = torch.argsort(fvals, stable=True)
-        simplex = simplex[order]
-        fvals = fvals[order]
+    def _step(self, rho: float = 1.0, chi: float = 2.0, psi: float = 0.5,
+              sigma: float = 0.5) -> None:
+        c = self._c
+        d = c.simplex.shape[1]
+        project = self.project
+        order = torch.argsort(c.fvals, stable=True)
+        simplex = c.simplex.index_select(0, order)
+        fvals = c.fvals.index_select(0, order)
         xbar = torch.mean(simplex[:d], dim=0)
         worst = simplex[d]
         xr = project(xbar + rho * (xbar - worst))
         xe = project(xbar + rho * chi * (xbar - worst))
         xoc = project(xbar + psi * rho * (xbar - worst))
         xic = project(xbar - psi * (xbar - worst))
-        fr, fe, foc, fic = _evaluate(objective, torch.stack([xr, xe, xoc,
-                                                             xic]))
+        fr, fe, foc, fic = _evaluate(self.objective,
+                                     torch.stack([xr, xe, xoc, xic]))
 
         expand = fr < fvals[0]
         take_e = expand & (fe < fr)
@@ -880,15 +1040,54 @@ def run_nelder_mead(objective: Callable, x0: torch.Tensor, n_iter: int = 100,
         freplaced = fvals.clone()
         freplaced[d] = new_f
         shrunk = project(simplex[0][None] + sigma * (simplex - simplex[0]))
-        fshrunk = _evaluate(objective, shrunk)
-        simplex = torch.where(shrink, shrunk, replaced)
+        fshrunk = _evaluate(self.objective, shrunk)
         fvals = torch.where(shrink, fshrunk, freplaced)
-        history[it] = torch.min(fvals)
-    best = torch.argmin(fvals)
-    return OptResult(param=simplex[best], loss=fvals[best],
-                     best_iter=torch.tensor(n_iter - 1, dtype=torch.int32,
-                                            device=x0.device),
-                     history=history, last_param=simplex[best])
+        c.simplex.copy_(torch.where(shrink, shrunk, replaced))
+        c.fvals.copy_(fvals)
+        c.history.index_copy_(0, c.count, torch.min(fvals)[None])
+        c.count.add_(1)
+
+    def run(self, x0: torch.Tensor) -> OptResult:
+        """``n_iter`` steps from ``x0``; returns copies of the outputs (see
+        :func:`run_nelder_mead`)."""
+        simplex = self._simplex(x0)
+        fvals = _evaluate(self.objective, simplex)
+        if self._c is None:
+            self._c = SimpleNamespace(
+                simplex=simplex, fvals=fvals,
+                history=torch.zeros((self.n_iter,), dtype=fvals.dtype,
+                                    device=fvals.device),
+                count=torch.zeros((1,), dtype=torch.int64,
+                                  device=fvals.device))
+        else:
+            c = self._c
+            _check_iterate(c.simplex, simplex)
+            c.simplex.copy_(simplex)
+            c.fvals.copy_(fvals)
+            c.count.zero_()
+        c = self._c
+        if graphs.graph_route(c.simplex.device):
+            if self.graph is None:
+                self.graph = graphs.StepGraph(self._step, c.simplex.device)
+            self.graph.run(self.n_iter)
+        else:
+            for _ in range(self.n_iter):
+                self._step()
+        best = torch.argmin(c.fvals)
+        param = _row(c.simplex, best)
+        return OptResult(param=param, loss=_row(c.fvals, best),
+                         best_iter=torch.full((), self.n_iter - 1,
+                                              dtype=torch.int32,
+                                              device=param.device),
+                         history=c.history.clone(), last_param=param)
+
+
+def run_nelder_mead(objective: Callable, x0: torch.Tensor, n_iter: int = 100,
+                    bounds: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                    ) -> OptResult:
+    """Derivative-free Nelder-Mead simplex on the device: one
+    :class:`NelderMeadLoop`, run once."""
+    return _run_once(NelderMeadLoop(objective, n_iter, bounds), x0)
 
 
 def _cg(hvp: Callable, b: torch.Tensor, maxiter: int, tol: float = 1e-5,
@@ -918,80 +1117,138 @@ def _cg(hvp: Callable, b: torch.Tensor, maxiter: int, tol: float = 1e-5,
     return x
 
 
-def run_newton_cg(objective: Callable, x0: torch.Tensor, n_iter: int = 50,
-                  cg_iters: int = 10,
-                  bounds: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                  ) -> OptResult:
-    """Truncated Newton: each iteration CG-solves ``H d = −g``
-    (``cg_iters`` steps) on Hessian-vector products of a double backward,
-    falls back to ``−g`` on a non-finite or ascent direction, and takes the
-    largest of 8 halving steps that satisfies Armijo (all evaluated, the
-    first passing one selected; none → the iterate stays).
+class NewtonCgLoop(_GraphLoop):
+    """Truncated Newton as a loop over device state (the iterate, the best
+    iterate, loss and step, the history and a step counter), reusable for
+    further solves of the same shapes.
+
+    Each step (:meth:`_step`) CG-solves ``H d = −g`` (``cg_iters`` steps)
+    on Hessian-vector products of a double backward, falls back to ``−g``
+    on a non-finite or ascent direction, and takes the largest of 8
+    halving steps that satisfies Armijo (all evaluated, the first passing
+    one selected; none → the iterate stays).  Whether the gradient depends
+    on ``x`` at all (else every Hessian-vector product is 0) is decided at
+    the loop's first step.  The steps run as a
+    :class:`~event_based_bos_tpu_torch.graphs.StepGraph` on the card (the
+    double backward captured inside the step), in a Python loop on the
+    CPU.
 
     The objective must be twice differentiable under autograd: a custom
     ``autograd.Function`` whose backward is not differentiable raises.
     """
-    dev, dt = x0.device, x0.dtype
 
-    def project(x):
-        return (torch.clamp(x, bounds[0], bounds[1]) if bounds is not None
-                else x)
+    def __init__(self, objective: Callable, n_iter: int, cg_iters: int = 10,
+                 bounds: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        self.objective = objective
+        self.n_iter = n_iter
+        self.cg_iters = cg_iters
+        self.project = _projector(bounds)
+        self.graph: Optional[graphs.StepGraph] = None
+        self._c: Optional[SimpleNamespace] = None
+        self._curved: Optional[bool] = None
 
-    ts = 0.5 ** torch.arange(8, dtype=dt, device=dev)
-    x = project(x0.detach())
-    best_x = x0.detach()
-    best_loss = torch.full((), math.inf, dtype=dt, device=dev)
-    best_it = torch.zeros((), dtype=torch.int32, device=dev)
-    steps = torch.arange(n_iter, dtype=torch.int32, device=dev)
-    history = torch.empty((n_iter,), dtype=dt, device=dev)
-    for it in range(n_iter):
-        xg = x.detach().requires_grad_(True)
+    def _step(self) -> None:
+        c = self._c
+        xg = c.x.detach().requires_grad_(True)
         with torch.enable_grad():
-            f0 = objective(xg)
+            f0 = self.objective(xg)
             (g,) = torch.autograd.grad(f0, xg, create_graph=True)
+            if self._curved is None:
+                self._curved = g.requires_grad
 
             def hvp(v):
-                if not g.requires_grad:  # a gradient constant in x
+                if not self._curved:  # a gradient constant in x
                     return torch.zeros_like(v)
                 (hv,) = torch.autograd.grad(g, xg, grad_outputs=v,
                                             retain_graph=True,
                                             allow_unused=True)
                 return torch.zeros_like(v) if hv is None else hv
 
-            d = _cg(hvp, -g.detach(), cg_iters)
+            d = _cg(hvp, -g.detach(), self.cg_iters)
         f0, g = f0.detach(), g.detach()
         ok = torch.all(torch.isfinite(d)) & (torch.dot(d, g) < 0)
         d = torch.where(ok, d, -g)
-        cand = project(x[None] + ts[:, None] * d[None])
-        fc = _evaluate(objective, cand)
-        armijo = fc <= f0 + 1e-4 * ts * torch.dot(g, d)
+        cand = self.project(c.x[None] + c.ts[:, None] * d[None])
+        fc = _evaluate(self.objective, cand)
+        armijo = fc <= f0 + 1e-4 * c.ts * torch.dot(g, d)
         first = torch.argmax(armijo.to(torch.int32))
-        x_new = torch.where(torch.any(armijo), cand[first], x)
-        better = f0 < best_loss
-        best_x = torch.where(better, x, best_x)
-        best_loss = torch.minimum(f0, best_loss)
-        best_it = torch.where(better, steps[it], best_it)
-        history[it] = f0
-        x = x_new
-    with torch.no_grad():
-        final_loss = objective(x)
-    use_final = final_loss < best_loss
-    return OptResult(
-        param=torch.where(use_final, x, best_x),
-        loss=torch.minimum(final_loss, best_loss),
-        best_iter=torch.where(use_final, steps[-1] if n_iter else best_it,
-                              best_it),
-        history=history, last_param=x)
+        x_new = torch.where(torch.any(armijo), _row(cand, first), c.x)
+        better = f0 < c.best_loss
+        c.best_x.copy_(torch.where(better, c.x, c.best_x))
+        c.best_loss.copy_(torch.minimum(f0, c.best_loss))
+        c.best_it.copy_(torch.where(better, c.count.to(torch.int32)[0],
+                                    c.best_it))
+        c.history.index_copy_(0, c.count, f0[None])
+        c.x.copy_(x_new)
+        c.count.add_(1)
+
+    def _start(self, x0: torch.Tensor) -> None:
+        x0 = x0.detach()
+        if self._c is None:
+            dev, dt = x0.device, x0.dtype
+            self._c = SimpleNamespace(
+                x=self.project(x0).clone(), best_x=x0.clone(),
+                best_loss=torch.full((), math.inf, dtype=dt, device=dev),
+                best_it=torch.zeros((), dtype=torch.int32, device=dev),
+                history=torch.zeros((self.n_iter,), dtype=dt, device=dev),
+                ts=0.5 ** torch.arange(8, dtype=dt, device=dev),
+                count=torch.zeros((1,), dtype=torch.int64, device=dev))
+            return
+        c = self._c
+        _check_iterate(c.x, x0)
+        c.x.copy_(self.project(x0))
+        c.best_x.copy_(x0)
+        c.best_loss.fill_(math.inf)
+        c.best_it.zero_()
+        c.count.zero_()
+
+    def run(self, x0: torch.Tensor) -> OptResult:
+        """``n_iter`` steps from ``x0``; returns copies of the outputs (see
+        :func:`run_newton_cg`)."""
+        self._start(x0)
+        c = self._c
+        if graphs.graph_route(c.x.device):
+            if self.graph is None:
+                self.graph = graphs.StepGraph(self._step, c.x.device)
+            self.graph.run(self.n_iter)
+        else:
+            for _ in range(self.n_iter):
+                self._step()
+        with torch.no_grad():
+            final_loss = self.objective(c.x)
+        use_final = final_loss < c.best_loss
+        best_iter = (torch.where(use_final, self.n_iter - 1, c.best_it)
+                     if self.n_iter > 0 else c.best_it.clone())
+        return OptResult(
+            param=torch.where(use_final, c.x, c.best_x),
+            loss=torch.minimum(final_loss, c.best_loss), best_iter=best_iter,
+            history=c.history.clone(), last_param=c.x.clone())
+
+
+def run_newton_cg(objective: Callable, x0: torch.Tensor, n_iter: int = 50,
+                  cg_iters: int = 10,
+                  bounds: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                  ) -> OptResult:
+    """Truncated Newton on Hessian-vector products of a double backward:
+    one :class:`NewtonCgLoop`, run once."""
+    return _run_once(NewtonCgLoop(objective, n_iter, cg_iters, bounds), x0)
+
+
+def scipy_loop(objective: Callable, n_iter: int, method: str, bounds=None):
+    """The loop of a scipy method's family, reusable from frame to frame:
+    Nelder-Mead for the derivative-free methods, Newton-CG for those that
+    take a Hessian, L-BFGS for the rest."""
+    if method in DERIVATIVE_FREE_METHODS:
+        return NelderMeadLoop(objective, n_iter, bounds=bounds)
+    if method in HESSIAN_METHODS:
+        return NewtonCgLoop(objective, n_iter, bounds=bounds)
+    return LbfgsLoop(objective, n_iter, bounds=bounds)
 
 
 def run_scipy_method(objective: Callable, x0: torch.Tensor, n_iter: int,
                      method: str, bounds=None) -> OptResult:
-    """Route a scipy method name to its family's implementation."""
-    if method in DERIVATIVE_FREE_METHODS:
-        return run_nelder_mead(objective, x0, n_iter, bounds=bounds)
-    if method in HESSIAN_METHODS:
-        return run_newton_cg(objective, x0, n_iter, bounds=bounds)
-    return run_lbfgs(objective, x0, n_iter, bounds=bounds)
+    """Route a scipy method name to its family's loop, run once."""
+    return _run_once(scipy_loop(objective, n_iter, method, bounds), x0)
 
 
 # ---------------------------------------------------------------------------
@@ -1010,83 +1267,137 @@ def _grid_axis(lo: float, hi: float, n: int) -> np.ndarray:
                            np.array([hi], f32)])
 
 
-def run_sampler(objective: Callable, bounds, n_trials: int,
-                sampler: str = "random",
-                generator: Optional[torch.Generator] = None,
-                draws: Optional[Dict[str, Any]] = None,
-                device=None) -> OptResult:
-    """Black-box search over the box ``bounds = (lo, hi)``.
+class SamplerProgram:
+    """Black-box search over the box ``bounds = (lo, hi)`` for one
+    objective, trial count and sampler, reusable from frame to frame.
 
       * ``grid`` / ``uniform`` — the per-dimension linspace grid with
         ``round(n_trials^(1/d))`` points an axis (at least 2), the whole
-        cartesian product;
+        cartesian product (made once, on the device);
       * ``random`` — ``n_trials`` uniform samples;
       * ``TPE`` — the two-stage stand-in of a batched program (half the
         budget uniform, half normal draws around the best decile, σ = 10 %
         of the box), with a warning; the sequential study is :mod:`.tpe`.
 
-    The box and the samples are float32, whatever the objective's dtype.
-    The random draws come from ``generator`` on ``device`` unless
-    ``draws`` gives them: ``"uniform"`` (``[n1, d]`` samples in the box),
-    and for ``TPE`` ``"pick"`` (``[n2]`` indices into the best decile) and
-    ``"noise"`` (``[n2, d]`` standard normals).  The trials are evaluated
-    one after another with no read to the host.
+    The box and the samples are float32, whatever the objective's dtype,
+    on ``device`` (the card when None; without one it raises).
+    :meth:`run` draws the random numbers (outside any capture, from the
+    generator in the order the samplers always drew them, or from
+    ``draws``), then evaluates every trial, one after another, and takes
+    the argmin in one function of the draws with no read to the host: with
+    ``kept`` a :class:`~event_based_bos_tpu_torch.graphs.CapturedProgram`
+    (captured at its first run on the card, replayed after), else op by op
+    (a program used once).
     """
-    lo_np, hi_np = (np.asarray(b.detach().cpu() if torch.is_tensor(b) else b,
-                               np.float64).reshape(-1).astype(np.float32)
-                    for b in bounds)
+
+    def __init__(self, objective: Callable, bounds, n_trials: int,
+                 sampler: str = "random", device=None, kept: bool = True):
+        lo_np, hi_np = (np.asarray(b.detach().cpu() if torch.is_tensor(b)
+                                   else b, np.float64).reshape(-1)
+                        .astype(np.float32) for b in bounds)
+        self.device = resolve_device(device)
+        self.objective = objective
+        self.n_trials = n_trials
+        self.sampler = sampler
+        self.lo = torch.as_tensor(lo_np, device=self.device)
+        self.hi = torch.as_tensor(hi_np, device=self.device)
+        self.dim = lo_np.shape[0]
+        self.grid = None
+        if sampler in ("grid", "uniform"):
+            per_dim = int(max(2, round(n_trials ** (1.0 / self.dim))))
+            axes = [_grid_axis(lo_np[d], hi_np[d], per_dim)
+                    for d in range(self.dim)]
+            mesh = np.meshgrid(*axes, indexing="ij")
+            self.grid = torch.as_tensor(
+                np.stack([m.reshape(-1) for m in mesh], -1),
+                device=self.device)
+        elif sampler not in ("random", "TPE"):
+            raise KeyError(f"Unknown sampler {sampler!r}")
+        self.n1 = n_trials if sampler == "random" else max(n_trials // 2, 1)
+        self.program = graphs.CapturedProgram(self._trials) if kept else None
+
+    @property
+    def graph(self):
+        """The captured call (None before the first run on the card, and
+        on the per-call route)."""
+        calls = list(self.program.kept.values()) if self.program else []
+        return calls[0] if calls else None
+
+    def release(self) -> None:
+        """Drop the captured call and its memory pool now."""
+        if self.program is not None:
+            self.program.kept.clear()
+
+    def _best(self, xs, losses):
+        best = torch.argmin(losses)
+        return _row(xs, best), _row(losses, best), best, losses
+
+    def _trials(self, xs1, pick=None, noise=None):
+        losses1 = _evaluate(self.objective, xs1)
+        if pick is None:
+            return self._best(xs1, losses1)
+        n_top = max(self.n1 // 10, 1)
+        top = torch.argsort(losses1, stable=True)[:n_top]
+        centers = xs1.index_select(0, top.index_select(0, pick))
+        spread = (self.hi - self.lo) * 0.1
+        xs2 = torch.clamp(centers + noise * spread, self.lo, self.hi)
+        losses2 = _evaluate(self.objective, xs2)
+        return self._best(torch.cat([xs1, xs2]),
+                          torch.cat([losses1, losses2]))
+
+    def _draws(self, generator, draws) -> Tuple[torch.Tensor, ...]:
+        if self.grid is not None:
+            return (self.grid,)
+        dev, draws = self.device, draws or {}
+        if "uniform" in draws:
+            xs1 = torch.as_tensor(np.array(draws["uniform"], np.float32),
+                                  device=dev)
+        else:
+            u = torch.rand((self.n1, self.dim), generator=generator,
+                           dtype=torch.float32, device=dev)
+            xs1 = torch.maximum(self.lo, u * (self.hi - self.lo) + self.lo)
+        if self.sampler == "random":
+            return (xs1,)
+        logger.warning(
+            "sampler 'TPE' inside a batched solve uses the two-stage "
+            "random-search approximation, not sequential TPE semantics.")
+        n2 = self.n_trials - self.n1
+        n_top = max(self.n1 // 10, 1)
+        if "pick" in draws:
+            pick = torch.as_tensor(np.array(draws["pick"], np.int64),
+                                   device=dev)
+            noise = torch.as_tensor(np.array(draws["noise"], np.float32),
+                                    device=dev)
+        else:
+            pick = torch.randint(0, n_top, (n2,), generator=generator,
+                                 device=dev)
+            noise = torch.randn((n2, self.dim), generator=generator,
+                                dtype=torch.float32, device=dev)
+        return xs1, pick, noise
+
+    def run(self, generator: Optional[torch.Generator] = None,
+            draws: Optional[Dict[str, Any]] = None) -> OptResult:
+        """The trials of one solve; ``draws`` (``"uniform"``: ``[n1, d]``
+        samples in the box; for ``TPE`` also ``"pick"``, ``[n2]`` indices
+        into the best decile, and ``"noise"``, ``[n2, d]`` standard
+        normals) replaces the generator's."""
+        args = self._draws(generator, draws)
+        evaluate = self.program if self.program is not None else self._trials
+        param, loss, best, losses = evaluate(*args)
+        return OptResult(param=param, loss=loss, best_iter=best,
+                         history=losses, last_param=param)
+
+
+def run_sampler(objective: Callable, bounds, n_trials: int,
+                sampler: str = "random",
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[Dict[str, Any]] = None,
+                device=None) -> OptResult:
+    """Black-box search over the box ``bounds = (lo, hi)`` (see
+    :class:`SamplerProgram`): one program used once, op by op.  The random
+    draws come from ``generator`` on ``device`` (by default the
+    generator's) unless ``draws`` gives them."""
     dev = torch.device(device) if device is not None else (
         generator.device if generator is not None else torch.device("cpu"))
-    lo = torch.as_tensor(lo_np, device=dev)
-    hi = torch.as_tensor(hi_np, device=dev)
-    dim = lo_np.shape[0]
-    draws = draws or {}
-
-    def result(xs, losses):
-        best = torch.argmin(losses)
-        return OptResult(param=xs[best], loss=losses[best], best_iter=best,
-                         history=losses, last_param=xs[best])
-
-    if sampler in ("grid", "uniform"):
-        per_dim = int(max(2, round(n_trials ** (1.0 / dim))))
-        axes = [_grid_axis(lo_np[d], hi_np[d], per_dim) for d in range(dim)]
-        mesh = np.meshgrid(*axes, indexing="ij")
-        xs = torch.as_tensor(np.stack([m.reshape(-1) for m in mesh], -1),
-                             device=dev)
-        return result(xs, _evaluate(objective, xs))
-    if sampler not in ("random", "TPE"):
-        raise KeyError(f"Unknown sampler {sampler!r}")
-
-    n1 = n_trials if sampler == "random" else max(n_trials // 2, 1)
-    if "uniform" in draws:
-        xs1 = torch.as_tensor(np.array(draws["uniform"], np.float32),
-                              device=dev)
-    else:
-        u = torch.rand((n1, dim), generator=generator, dtype=torch.float32,
-                       device=dev)
-        xs1 = torch.maximum(lo, u * (hi - lo) + lo)
-    losses1 = _evaluate(objective, xs1)
-    if sampler == "random":
-        return result(xs1, losses1)
-
-    logger.warning(
-        "sampler 'TPE' inside a batched solve uses the two-stage "
-        "random-search approximation, not sequential TPE semantics.")
-    n2 = n_trials - n1
-    n_top = max(n1 // 10, 1)
-    top = torch.argsort(losses1, stable=True)[:n_top]
-    if "pick" in draws:
-        pick = torch.as_tensor(np.array(draws["pick"], np.int64),
-                               device=dev)
-        noise = torch.as_tensor(np.array(draws["noise"], np.float32),
-                                device=dev)
-    else:
-        pick = torch.randint(0, n_top, (n2,), generator=generator,
-                             device=dev)
-        noise = torch.randn((n2, dim), generator=generator,
-                            dtype=torch.float32, device=dev)
-    centers = xs1[top[pick]]
-    spread = (hi - lo) * 0.1
-    xs2 = torch.clamp(centers + noise * spread, lo, hi)
-    losses2 = _evaluate(objective, xs2)
-    return result(torch.cat([xs1, xs2]), torch.cat([losses1, losses2]))
+    return SamplerProgram(objective, bounds, n_trials, sampler, dev,
+                          kept=False).run(generator, draws)

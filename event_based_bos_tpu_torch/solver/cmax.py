@@ -42,7 +42,7 @@ from ..ops.iwe_cuda import hat_vote
 from ..ops.warp import (calculate_reftime, warp_event_2dof,
                         warp_event_dense_flow)
 from ..optim import (SAMPLER_METHODS, SCIPY_METHODS, FirstOrderLoop,
-                     run_sampler, run_scipy_method)
+                     SamplerProgram, scipy_loop)
 from ..types import Events, PatchGrid
 from .generative import dense_operators, patch_to_dense
 
@@ -273,7 +273,7 @@ def _translation_objective(consts, spec: CmaxSpec, blur):
 
 
 class CmaxProgram:
-    """CMax's first-order solve for one spec, kept from frame to frame: the
+    """CMax's solve for one spec, kept from frame to frame: the
     counterpart of the JAX package's jitted ``estimate_frame_cmax``.
 
     The binned histograms (one vote, :func:`binned_histograms`) are a
@@ -284,14 +284,15 @@ class CmaxProgram:
     buffers of its own with the solve's loops over them: each scale's
     :class:`~event_based_bos_tpu_torch.optim.FirstOrderLoop` of the dense
     model (with its interpolation operators, the blur's operators and the
-    resize matrices between scales), or the translation's loop (with its
-    box).  A solve copies its frame into the buffers and replays; inputs
-    of other shapes or dtypes rebuild the loops.  ``kept=False`` is a
-    program used once (the per-call route): its histograms run op by op
-    and its loops' graphs are dropped after the solve.  Outputs are
-    copies.  The translation's samplers and scipy methods are host-driven
-    and take no program (:func:`solve_cmax_translation`); the dense model
-    raises ``KeyError`` on them, as the JAX package does.
+    resize matrices between scales), or the translation's loop over its
+    box: a first-order loop, the scipy family's loop
+    (:func:`..optim.scipy_loop`) or a :class:`~..optim.SamplerProgram`.  A
+    solve copies its frame into the buffers and replays; inputs of other
+    shapes or dtypes rebuild the loops.  ``kept=False`` is a program used
+    once (the per-call route): its histograms and a sampler's trials run
+    op by op and its loops' graphs are dropped after the solve.  Outputs
+    are copies.  The dense model raises ``KeyError`` on the samplers and
+    the scipy methods, as the JAX package does.
     """
 
     def __init__(self, spec: CmaxSpec, kept: bool = True):
@@ -340,12 +341,23 @@ class CmaxProgram:
             # the IWE has the events' and the motion's promoted dtype
             self._blur = _blur_operators(spec.image_size, promoted, spec, dev)
             pb = _translation_bounds(spec)
+            objective = _translation_objective(self.kept.buffers, spec,
+                                               self._blur)
+            if spec.method in SAMPLER_METHODS:
+                self.kept.loops.append(SamplerProgram(
+                    objective, ([b[0] for b in pb], [b[1] for b in pb]),
+                    spec.n_iter, spec.method, dev, kept=self._keep))
+                return
             self._bounds = tuple(
                 torch.tensor([b[i] for b in pb], dtype=spec.dtype,
                              device=dev) for i in (0, 1))
+            if spec.method in SCIPY_METHODS:
+                self.kept.loops.append(scipy_loop(
+                    objective, spec.n_iter, spec.method,
+                    bounds=self._bounds))
+                return
             self.kept.loops.append(FirstOrderLoop(
-                _translation_objective(self.kept.buffers, spec, self._blur),
-                spec.n_iter, spec.method, lr=spec.lr,
+                objective, spec.n_iter, spec.method, lr=spec.lr,
                 lr_decay=spec.lr_decay, bounds=self._bounds))
             return
         if spec.time_bins > 0:
@@ -367,14 +379,19 @@ class CmaxProgram:
             self._build(ev)
 
     def solve_translation(self, ev: Events,
-                          x0: Optional[torch.Tensor] = None):
+                          x0: Optional[torch.Tensor] = None,
+                          generator: Optional[torch.Generator] = None,
+                          draws=None):
         """:func:`solve_cmax_translation` through this program."""
         try:
             self._bind(ev)
-            if x0 is None:
-                x0 = torch.zeros((2,), dtype=self.spec.dtype,
-                                 device=ev.x.device)
-            result = self.kept.loops[0].run(x0)
+            if self.spec.method in SAMPLER_METHODS:
+                result = self.kept.loops[0].run(generator, draws)
+            else:
+                if x0 is None:
+                    x0 = torch.zeros((2,), dtype=self.spec.dtype,
+                                     device=ev.x.device)
+                result = self.kept.loops[0].run(x0)
         finally:
             if not self._keep:
                 self.kept.release()
@@ -428,36 +445,13 @@ def solve_cmax_translation(ev: Events,
     bin's histogram shifts by ``dt_b·θ`` through banded matmuls
     (:func:`shift_image_matrix`, exact for any shift); ``time_bins = 0``
     warps every event.  The samplers draw inside the bounds box from
-    ``generator`` (or take ``draws``, see :func:`..optim.run_sampler`); the
-    scipy and first-order methods project every iterate onto it.  A
-    first-order method runs through ``program`` (a :class:`CmaxProgram` of
-    ``spec``), or through a program of its own used once.
+    ``generator`` (or take ``draws``, see :class:`..optim.SamplerProgram`);
+    the scipy and first-order methods project every iterate onto it.  The
+    solve runs through ``program`` (a :class:`CmaxProgram` of ``spec``),
+    or through a program of its own used once.
     """
-    if spec.method not in SAMPLER_METHODS and \
-            spec.method not in SCIPY_METHODS:
-        return _program_for(spec, program).solve_translation(ev, x0)
-    dev = ev.t.device
-    # the IWE has the events' and the motion's promoted dtype
-    blur = _blur_operators(spec.image_size,
-                           torch.promote_types(ev.x.dtype, spec.dtype), spec,
-                           dev)
-    objective = _translation_objective(
-        _frame_constants(ev, spec, functools.partial(binned_histograms,
-                                                     spec=spec)), spec, blur)
-    pb = _translation_bounds(spec)
-    if spec.method in SAMPLER_METHODS:
-        result = run_sampler(objective, ([b[0] for b in pb],
-                                         [b[1] for b in pb]),
-                             spec.n_iter, spec.method, generator,
-                             draws=draws, device=dev)
-        return result.param, result
-    lo = torch.tensor([b[0] for b in pb], dtype=spec.dtype, device=dev)
-    hi = torch.tensor([b[1] for b in pb], dtype=spec.dtype, device=dev)
-    if x0 is None:
-        x0 = torch.zeros((2,), dtype=spec.dtype, device=dev)
-    result = run_scipy_method(objective, x0, spec.n_iter, spec.method,
-                              bounds=(lo, hi))
-    return result.param, result
+    return _program_for(spec, program).solve_translation(ev, x0, generator,
+                                                         draws)
 
 
 def solve_cmax_dense(ev: Events, generator: Optional[torch.Generator],
@@ -488,9 +482,9 @@ def estimate_frame_cmax(ev: Events, frame,
     Runs on the GPU unless ``device`` asks otherwise; the events are moved
     there.  ``frame`` is accepted and ignored (CMax is events-only), for a
     signature like the generative solvers'.  ``program`` (a
-    :class:`CmaxProgram` of ``spec``) runs a first-order solve through its
-    kept histograms, buffers and loops; without one the solve builds its
-    own, used once.
+    :class:`CmaxProgram` of ``spec``) runs the solve through its kept
+    histograms, buffers and loops; without one the solve builds its own,
+    used once.
     """
     dev = resolve_device(device)
     ev = Events(*(a.to(dev) for a in ev))
@@ -500,9 +494,10 @@ def estimate_frame_cmax(ev: Events, frame,
         flow = (-motion)[:, None, None].expand(
             (2,) + tuple(spec.image_size))
         aux = {"motion": motion, "loss": result.loss,
-               "history": result.history}
+               "history": result.history, "best_iter": result.best_iter}
         if "host_reads" in result:  # L-BFGS's line search
             aux["host_reads"] = result["host_reads"]
+            aux["ls_trials"] = result["ls_trials"]
         return flow, aux
     if spec.motion_model == "dense-flow":
         return solve_cmax_dense(ev, generator, spec, program=program)

@@ -10,9 +10,11 @@ votes the IWE cache (or CMax's histograms) once a frame on the card.
 Each facade keeps its programs per event capacity in ``self._programs``,
 as the JAX package's facades keep one jitted solve per capacity: on the
 card a capacity's first frame captures its program (the IWE cache or
-CMax's histograms, and each loop's step) and every later frame copies its
-inputs into the program's buffers and replays.  The host-driven methods
-(the samplers, the scipy names, TPE) keep no program.
+CMax's histograms, and the method's loop: each first-order, Nelder-Mead or
+Newton-CG step, each L-BFGS iteration with its line search, a sampler's
+trials) and every later frame copies its inputs into the program's buffers
+and replays.  Only GML's sequential TPE study, driven from the host as in
+the JAX package, keeps no program.
 """
 
 from __future__ import annotations
@@ -23,7 +25,6 @@ import logging
 import numpy as np
 import torch
 
-from ..optim import FIRST_ORDER_METHODS
 from ..types import Events
 from .api import EstimationHandle, SolverBase, fetch_later
 from .cmax import CmaxProgram, CmaxSpec, estimate_frame_cmax
@@ -133,9 +134,9 @@ class GenerativeMaximumLikelihood(SolverBase):
         self._programs = {}
 
     def _program(self, capacity: int):
-        """The kept program of event capacity ``capacity`` (first-order
-        methods; None for the host-driven ones)."""
-        if self.spec.method not in FIRST_ORDER_METHODS:
+        """The kept program of event capacity ``capacity`` (every method
+        but the host-driven TPE study)."""
+        if self._tpe_solver is not None:
             return None
         return _kept(self._programs, capacity,
                      lambda: GmlProgram(self.spec), self.spec.n_iter)
@@ -493,12 +494,8 @@ class ContrastMaximization(SolverBase):
         self._programs = {}
 
     def _program(self, capacity: int):
-        """The kept program of event capacity ``capacity``: the dense
-        model, or the translation with a first-order method (None for the
-        host-driven ones)."""
-        if (self.spec.motion_model != "dense-flow"
-                and self.spec.method not in FIRST_ORDER_METHODS):
-            return None
+        """The kept program of event capacity ``capacity`` (every motion
+        model and method)."""
         return _kept(self._programs, capacity,
                      lambda: CmaxProgram(self.spec), self.spec.n_iter)
 

@@ -2,15 +2,16 @@
 
 PyTorch counterpart of the JAX package's ``solver/gml.py``: one patch
 covering the ROI, parameters ``[angle | vx, vy]`` (+ the global pattern
-shift), fitted by
+shift), fitted through a :class:`GmlProgram` (kept from frame to frame by
+the facade) by
 
-  * the torch-optimizer names → a :class:`GmlProgram` (its loop kept from
-    frame to frame by the facade),
-  * the scipy names → :func:`..optim.run_scipy_method` (L-BFGS,
-    Nelder-Mead or Newton-CG by family),
-  * the samplers → :func:`..optim.run_sampler` (random, grid, and the
-    two-stage ``TPE`` stand-in), or the sequential TPE study of
-    :mod:`..tpe` through :func:`make_host_tpe_solver` (the facade's route).
+  * the torch-optimizer names → a :class:`~..optim.FirstOrderLoop`,
+  * the scipy names → the family's loop of :func:`..optim.scipy_loop`
+    (L-BFGS, Nelder-Mead or Newton-CG),
+  * the samplers → a :class:`~..optim.SamplerProgram` (random, grid, and
+    the two-stage ``TPE`` stand-in); the facade runs ``TPE`` as the
+    sequential study of :mod:`..tpe` instead, driven from the host
+    (:func:`make_host_tpe_solver`).
 
 The IWE cache is voted once a frame (one launch of the vote kernel on the
 card), however many times the objective is evaluated.
@@ -27,7 +28,7 @@ import torch
 from ..device import resolve_device
 from ..graphs import KeptSolve
 from ..optim import (FIRST_ORDER_METHODS, SAMPLER_METHODS, SCIPY_METHODS,
-                     FirstOrderLoop, run_sampler, run_scipy_method)
+                     FirstOrderLoop, SamplerProgram, scipy_loop)
 from ..types import Events
 from .generative import (GenerativeSpec, frame_constants,
                          iwe_cache_program, measured_increment,
@@ -126,43 +127,68 @@ def _objective(consts, spec: GmlSpec):
     return objective
 
 
+#: the methods a :class:`GmlProgram` runs
+PROGRAM_METHODS = tuple(FIRST_ORDER_METHODS) + SCIPY_METHODS + SAMPLER_METHODS
+
+
 class GmlProgram:
-    """The whole-ROI solve of a first-order method for one spec, kept from
-    frame to frame: the counterpart of the JAX package's jitted
-    ``estimate_frame_gml``.
+    """The whole-ROI solve for one spec, kept from frame to frame: the
+    counterpart of the JAX package's jitted ``estimate_frame_gml``.
 
     Its IWE cache is a kept program (:func:`..generative.iwe_cache_program`,
     captured per event capacity), and a
     :class:`~event_based_bos_tpu_torch.graphs.KeptSolve` holds the frame's
     measurement, event-hist weights, gradients and inverse-event weights in
-    buffers of its own with the loop over them, whose step is captured at
-    the first solve and replayed after.  ``kept=False`` is a program used
-    once (the per-call route): the cache runs op by op and the loop's graph
-    is dropped after the solve.  Outputs are copies.
+    buffers of its own with the method's loop over them: a
+    :class:`~..optim.FirstOrderLoop`, the scipy family's loop
+    (:func:`..optim.scipy_loop`: L-BFGS's iteration a while graph, the
+    others' step a step graph) or a :class:`~..optim.SamplerProgram`, each
+    captured at the first solve and replayed after.  ``kept=False`` is a
+    program used once (the per-call route): the cache and a sampler's
+    trials run op by op and the loop's graph is dropped after the solve.
+    Outputs are copies.
     """
 
     def __init__(self, spec: GmlSpec, kept: bool = True):
-        if spec.method not in FIRST_ORDER_METHODS:
-            raise KeyError(f"a GML program runs the first-order methods, "
-                           f"not {spec.method!r}")
+        if spec.method not in PROGRAM_METHODS:
+            raise KeyError(f"a GML program runs the methods "
+                           f"{PROGRAM_METHODS}, not {spec.method!r}")
         self.spec = spec
         self.kept = KeptSolve()
         self._keep = kept
         self.cache = iwe_cache_program(spec.gen) if kept else None
 
-    def solve(self, histogram, weights, weight_inverse, gx, gy, x0):
-        """:func:`solve_gml` of a first-order method through this program."""
+    def _loop(self, device):
+        spec = self.spec
+        objective = _objective(self.kept.buffers, spec)
+        if spec.method in SAMPLER_METHODS:
+            return SamplerProgram(
+                objective, ([b[0] for b in spec.param_bounds],
+                            [b[1] for b in spec.param_bounds]),
+                spec.n_iter, spec.method, device, kept=self._keep)
+        if spec.method in SCIPY_METHODS:
+            return scipy_loop(objective, spec.n_iter, spec.method)
+        return FirstOrderLoop(
+            objective, spec.n_iter, spec.method, lr=spec.lr,
+            lr_decay=spec.lr_decay, track_best=spec.track_best,
+            record_every=spec.record_evolution)
+
+    def solve(self, histogram, weights, weight_inverse, gx, gy, x0=None,
+              generator: Optional[torch.Generator] = None, draws=None):
+        """:func:`solve_gml` through this program: ``x0`` starts an
+        iterative method, ``generator`` (or ``draws``) gives a sampler's
+        trials."""
         spec = self.spec
         try:
             if self.kept.bind(_frame_constants(histogram, weights,
                                                weight_inverse, gx, gy,
                                                spec)):
-                self.kept.loops.append(FirstOrderLoop(
-                    _objective(self.kept.buffers, spec), spec.n_iter,
-                    spec.method, lr=spec.lr, lr_decay=spec.lr_decay,
-                    track_best=spec.track_best,
-                    record_every=spec.record_evolution))
-            result = self.kept.loops[0].run(x0)
+                self.kept.loops.append(self._loop(histogram.device))
+            loop = self.kept.loops[0]
+            if spec.method in SAMPLER_METHODS:
+                result = loop.run(generator, draws)
+            else:
+                result = loop.run(x0)
         finally:
             if not self._keep:
                 self.kept.release()
@@ -178,33 +204,20 @@ def solve_gml(histogram: torch.Tensor, weights: Optional[torch.Tensor],
 
     ``generator`` draws the poisson init (unless ``x0`` pins it) or the
     sampler's trials (unless ``draws`` gives them, see
-    :func:`..optim.run_sampler`).  A first-order method runs through
-    ``program`` (a :class:`GmlProgram` of ``spec``), or through a program
-    of its own used once.
+    :class:`..optim.SamplerProgram`).  The solve runs through ``program``
+    (a :class:`GmlProgram` of ``spec``), or through a program of its own
+    used once.
     """
-    dev = histogram.device
-    if spec.method in SAMPLER_METHODS:
-        objective = _objective(_frame_constants(
-            histogram, weights, weight_inverse, gx, gy, spec), spec)
-        lo = [b[0] for b in spec.param_bounds]
-        hi = [b[1] for b in spec.param_bounds]
-        result = run_sampler(objective, (lo, hi), spec.n_iter, spec.method,
-                             generator, draws=draws, device=dev)
-        return result.param, result
-    if x0 is None:
-        x0 = initialize_theta(generator, spec, dev)
-    if spec.method in FIRST_ORDER_METHODS:
-        if program is None:
-            program = GmlProgram(spec, kept=False)
-        elif program.spec != spec:
-            raise ValueError("the GML program was built for another spec")
-        return program.solve(histogram, weights, weight_inverse, gx, gy, x0)
-    if spec.method in SCIPY_METHODS:
-        objective = _objective(_frame_constants(
-            histogram, weights, weight_inverse, gx, gy, spec), spec)
-        result = run_scipy_method(objective, x0, spec.n_iter, spec.method)
-        return result.param, result
-    raise KeyError(f"Unknown optimizer method {spec.method!r}")
+    if spec.method not in PROGRAM_METHODS:
+        raise KeyError(f"Unknown optimizer method {spec.method!r}")
+    if program is None:
+        program = GmlProgram(spec, kept=False)
+    elif program.spec != spec:
+        raise ValueError("the GML program was built for another spec")
+    if spec.method not in SAMPLER_METHODS and x0 is None:
+        x0 = initialize_theta(generator, spec, histogram.device)
+    return program.solve(histogram, weights, weight_inverse, gx, gy, x0,
+                         generator, draws)
 
 
 def _constant_flow(theta: torch.Tensor, gen: GenerativeSpec):
@@ -220,12 +233,12 @@ def estimate_frame_gml(ev: Events, frame, generator: Optional[torch.Generator],
 
     Runs on the GPU unless ``device`` asks otherwise; the events, the frame
     and ``x0`` are moved there.  The fitted (vx, vy) is broadcast over the
-    image (a view).  ``aux``: ``theta``, ``loss``, ``history``, with
-    ``spec.record_evolution`` ``theta_history``, and with L-BFGS the line
-    search's ``host_reads``.  ``program`` (a :class:`GmlProgram` of
-    ``spec``, first-order methods) runs the IWE cache and the solve through
-    its kept programs; without one a first-order solve builds its own,
-    used once.
+    image (a view).  ``aux``: ``theta``, ``loss``, ``history``,
+    ``best_iter``, with ``spec.record_evolution`` ``theta_history``, and
+    with L-BFGS the line search's ``host_reads`` and ``ls_trials``.
+    ``program`` (a :class:`GmlProgram` of ``spec``) runs the IWE cache and
+    the solve through its kept programs; without one the solve builds its
+    own, used once.
     """
     dev = resolve_device(device)
     gen = spec.gen
@@ -236,11 +249,13 @@ def estimate_frame_gml(ev: Events, frame, generator: Optional[torch.Generator],
     theta, result = solve_gml(hist, weights, weight_inverse, gx, gy,
                               generator, spec, x0=x0, draws=draws,
                               program=program)
-    aux = {"theta": theta, "loss": result.loss, "history": result.history}
+    aux = {"theta": theta, "loss": result.loss, "history": result.history,
+           "best_iter": result.best_iter}
     if spec.record_evolution > 0 and result.get("params_history") is not None:
         aux["theta_history"] = result["params_history"]
-    if "host_reads" in result:  # L-BFGS's line search reads on the host
+    if "host_reads" in result:  # L-BFGS's line search
         aux["host_reads"] = result["host_reads"]
+        aux["ls_trials"] = result["ls_trials"]
     return _constant_flow(theta, gen), aux
 
 

@@ -241,6 +241,39 @@ class StubGraph:
         self.replays += 1
 
 
+class StubWhile:
+    """A stand-in while graph: a replay runs ``pre``, ``body`` until the
+    flag is set (read here, as the card's WHILE node reads it on the
+    device) and ``post``; the first replay runs each part under
+    :class:`NoHostReads`.  Counts its body's runs in ``trials``."""
+
+    captured = []
+
+    def __init__(self, parts, flag, device):
+        self.parts = parts
+        self.flag = flag
+        self.pool_bytes = 0
+        self.launches = {}
+        self.replays = 0
+        self.trials = 0
+        StubWhile.captured.append(self)
+
+    def replay(self):
+        pre, body, post = self.parts
+        guard = NoHostReads if self.replays == 0 else contextlib.nullcontext
+        with guard():
+            pre()
+        while True:
+            with guard():
+                body()
+            self.trials += 1
+            if bool(self.flag):
+                break
+        with guard():
+            post()
+        self.replays += 1
+
+
 def clear_kept_programs():
     """Forget the port's kept per-frame evaluation programs (module-level
     caches, as the JAX package's ``jit_*`` factories are)."""
@@ -253,14 +286,17 @@ def clear_kept_programs():
 
 def stub_capture(monkeypatch):
     """The graph route on the CPU (outside ``graphs.eager_loops()``),
-    through :class:`StubGraph`; returns the list of its captures."""
+    through :class:`StubGraph` and :class:`StubWhile`; returns the list of
+    the step captures (the while captures are ``StubWhile.captured``)."""
     from event_based_bos_tpu_torch import graphs
 
     StubGraph.captured = []
+    StubWhile.captured = []
     clear_kept_programs()
     monkeypatch.setattr(graphs, "graph_route",
                         lambda device: graphs._eager_depth == 0)
     monkeypatch.setattr(graphs, "_capture", StubGraph)
+    monkeypatch.setattr(graphs, "_while_capture", StubWhile)
     return StubGraph.captured
 
 
