@@ -32,6 +32,9 @@ The graph route on the card:
 
 The launches of the port's kernels that a captured step makes are counted
 once per replay (:func:`event_based_bos_tpu_torch.kernels.recording`).
+Every capture is an ``ebt.capture`` span in a profiler's trace and adds its
+seconds to the process-wide counter ``graph.capture_s``
+(:mod:`event_based_bos_tpu_torch.utils.tracing`).
 
 A loop whose iteration holds a loop of its own, decided by the data (the
 zoom line search inside an L-BFGS iteration, a ``lax.while_loop`` inside
@@ -72,6 +75,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple
 import torch
 
 from . import kernels
+from .utils import tracing
 
 __all__ = ["WARMUP_STEPS", "eager_loops", "graph_route", "StepGraph",
            "WhileGraph", "CapturedProgram", "KeptSolve"]
@@ -149,10 +153,19 @@ def _recorded_capture(step: Callable[[], None], device: torch.device):
         # a kernel wrapper's first call inside the capture would build
         # and load the library
         kernels.library()
-    t0 = time.perf_counter()
-    with kernels.recording() as tally:
-        graph = _capture(step, device)
-    return graph, dict(tally), (time.perf_counter() - t0) * 1e3
+    with tracing.span("ebt.capture"):
+        t0 = time.perf_counter()
+        with kernels.recording() as tally:
+            graph = _capture(step, device)
+        capture_ms = (time.perf_counter() - t0) * 1e3
+    _count_capture(capture_ms)
+    return graph, dict(tally), capture_ms
+
+
+def _count_capture(capture_ms: float) -> None:
+    """Add a capture's ``capture_ms`` to the process-wide counter
+    ``graph.capture_s``."""
+    tracing.count("graph.capture_s", capture_ms * 1e-3)
 
 
 def _count_replay(launches: Dict[str, int]) -> None:
@@ -342,10 +355,12 @@ class WhileGraph:
             if self.graph is None:
                 if self.warmup is not None:
                     self.warmup()
-                t0 = time.perf_counter()
-                self.graph = _while_capture(self.parts, self.flag,
-                                            self.device)
-                self.capture_ms = (time.perf_counter() - t0) * 1e3
+                with tracing.span("ebt.capture"):
+                    t0 = time.perf_counter()
+                    self.graph = _while_capture(self.parts, self.flag,
+                                                self.device)
+                    self.capture_ms = (time.perf_counter() - t0) * 1e3
+                _count_capture(self.capture_ms)
                 self.launches = dict(self.graph.launches)
                 self.pool_bytes = self.graph.pool_bytes
             for _ in range(n):

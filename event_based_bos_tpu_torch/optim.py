@@ -48,6 +48,7 @@ import torch
 
 from . import graphs
 from .device import resolve_device
+from .utils.tracing import span
 
 __all__ = ["OptResult", "Adam", "AdamW", "NAdam", "Adamax", "RAdam",
            "Adagrad", "Adadelta", "RMSprop", "SGD", "make_optimizer",
@@ -495,24 +496,25 @@ class FirstOrderLoop(_GraphLoop):
         :func:`run_first_order`)."""
         if self.n_iter <= 0:
             return self._empty(x0)
-        if self._c is None:
-            x = x0.detach().clone()
-            loss, aux, grad = self._evaluate(x)
-            self._allocate(x, loss, aux)
-            self._update(loss, aux, grad)
-            remaining = self.n_iter - 1
-        else:
-            self._reset(x0.detach())
-            remaining = self.n_iter
-        dev = self._c.x.device
-        if graphs.graph_route(dev):
-            if self.graph is None:
-                self.graph = graphs.StepGraph(self._step, dev)
-            self.graph.run(remaining)
-        else:
-            for _ in range(remaining):
-                self._step()
-        return self._result()
+        with span("ebt.loop"):
+            if self._c is None:
+                x = x0.detach().clone()
+                loss, aux, grad = self._evaluate(x)
+                self._allocate(x, loss, aux)
+                self._update(loss, aux, grad)
+                remaining = self.n_iter - 1
+            else:
+                self._reset(x0.detach())
+                remaining = self.n_iter
+            dev = self._c.x.device
+            if graphs.graph_route(dev):
+                if self.graph is None:
+                    self.graph = graphs.StepGraph(self._step, dev)
+                self.graph.run(remaining)
+            else:
+                for _ in range(remaining):
+                    self._step()
+            return self._result()
 
     def _result(self) -> OptResult:
         c = self._c
@@ -882,22 +884,23 @@ class LbfgsLoop(_GraphLoop):
     def run(self, x0: torch.Tensor) -> OptResult:
         """``n_iter`` iterations from ``x0``; returns copies of the outputs
         (see :func:`run_lbfgs`)."""
-        if self._c is None:
-            self._allocate(x0)
-        else:
-            self._reset(x0.detach())
-        dev = self._c.x.device
-        reads = 0
-        if self.n_iter > 0 and graphs.graph_route(dev):
-            if self.graph is None:
-                self.graph = graphs.WhileGraph(
-                    self._pre, self._trial, self._post, self._c.flag, dev,
-                    warmup=self._warm_up)
-            self.graph.run(self.n_iter)
-        else:
-            for _ in range(self.n_iter):
-                reads += self._iterate_eagerly()
-        return self._result(reads)
+        with span("ebt.loop"):
+            if self._c is None:
+                self._allocate(x0)
+            else:
+                self._reset(x0.detach())
+            dev = self._c.x.device
+            reads = 0
+            if self.n_iter > 0 and graphs.graph_route(dev):
+                if self.graph is None:
+                    self.graph = graphs.WhileGraph(
+                        self._pre, self._trial, self._post, self._c.flag,
+                        dev, warmup=self._warm_up)
+                self.graph.run(self.n_iter)
+            else:
+                for _ in range(self.n_iter):
+                    reads += self._iterate_eagerly()
+            return self._result(reads)
 
     def _result(self, reads: int) -> OptResult:
         c = self._c
@@ -1050,36 +1053,38 @@ class NelderMeadLoop(_GraphLoop):
     def run(self, x0: torch.Tensor) -> OptResult:
         """``n_iter`` steps from ``x0``; returns copies of the outputs (see
         :func:`run_nelder_mead`)."""
-        simplex = self._simplex(x0)
-        fvals = _evaluate(self.objective, simplex)
-        if self._c is None:
-            self._c = SimpleNamespace(
-                simplex=simplex, fvals=fvals,
-                history=torch.zeros((self.n_iter,), dtype=fvals.dtype,
-                                    device=fvals.device),
-                count=torch.zeros((1,), dtype=torch.int64,
-                                  device=fvals.device))
-        else:
+        with span("ebt.loop"):
+            simplex = self._simplex(x0)
+            fvals = _evaluate(self.objective, simplex)
+            if self._c is None:
+                self._c = SimpleNamespace(
+                    simplex=simplex, fvals=fvals,
+                    history=torch.zeros((self.n_iter,), dtype=fvals.dtype,
+                                        device=fvals.device),
+                    count=torch.zeros((1,), dtype=torch.int64,
+                                      device=fvals.device))
+            else:
+                c = self._c
+                _check_iterate(c.simplex, simplex)
+                c.simplex.copy_(simplex)
+                c.fvals.copy_(fvals)
+                c.count.zero_()
             c = self._c
-            _check_iterate(c.simplex, simplex)
-            c.simplex.copy_(simplex)
-            c.fvals.copy_(fvals)
-            c.count.zero_()
-        c = self._c
-        if graphs.graph_route(c.simplex.device):
-            if self.graph is None:
-                self.graph = graphs.StepGraph(self._step, c.simplex.device)
-            self.graph.run(self.n_iter)
-        else:
-            for _ in range(self.n_iter):
-                self._step()
-        best = torch.argmin(c.fvals)
-        param = _row(c.simplex, best)
-        return OptResult(param=param, loss=_row(c.fvals, best),
-                         best_iter=torch.full((), self.n_iter - 1,
-                                              dtype=torch.int32,
-                                              device=param.device),
-                         history=c.history.clone(), last_param=param)
+            if graphs.graph_route(c.simplex.device):
+                if self.graph is None:
+                    self.graph = graphs.StepGraph(self._step,
+                                                  c.simplex.device)
+                self.graph.run(self.n_iter)
+            else:
+                for _ in range(self.n_iter):
+                    self._step()
+            best = torch.argmin(c.fvals)
+            param = _row(c.simplex, best)
+            return OptResult(param=param, loss=_row(c.fvals, best),
+                             best_iter=torch.full((), self.n_iter - 1,
+                                                  dtype=torch.int32,
+                                                  device=param.device),
+                             history=c.history.clone(), last_param=param)
 
 
 def run_nelder_mead(objective: Callable, x0: torch.Tensor, n_iter: int = 100,
@@ -1205,24 +1210,26 @@ class NewtonCgLoop(_GraphLoop):
     def run(self, x0: torch.Tensor) -> OptResult:
         """``n_iter`` steps from ``x0``; returns copies of the outputs (see
         :func:`run_newton_cg`)."""
-        self._start(x0)
-        c = self._c
-        if graphs.graph_route(c.x.device):
-            if self.graph is None:
-                self.graph = graphs.StepGraph(self._step, c.x.device)
-            self.graph.run(self.n_iter)
-        else:
-            for _ in range(self.n_iter):
-                self._step()
-        with torch.no_grad():
-            final_loss = self.objective(c.x)
-        use_final = final_loss < c.best_loss
-        best_iter = (torch.where(use_final, self.n_iter - 1, c.best_it)
-                     if self.n_iter > 0 else c.best_it.clone())
-        return OptResult(
-            param=torch.where(use_final, c.x, c.best_x),
-            loss=torch.minimum(final_loss, c.best_loss), best_iter=best_iter,
-            history=c.history.clone(), last_param=c.x.clone())
+        with span("ebt.loop"):
+            self._start(x0)
+            c = self._c
+            if graphs.graph_route(c.x.device):
+                if self.graph is None:
+                    self.graph = graphs.StepGraph(self._step, c.x.device)
+                self.graph.run(self.n_iter)
+            else:
+                for _ in range(self.n_iter):
+                    self._step()
+            with torch.no_grad():
+                final_loss = self.objective(c.x)
+            use_final = final_loss < c.best_loss
+            best_iter = (torch.where(use_final, self.n_iter - 1, c.best_it)
+                         if self.n_iter > 0 else c.best_it.clone())
+            return OptResult(
+                param=torch.where(use_final, c.x, c.best_x),
+                loss=torch.minimum(final_loss, c.best_loss),
+                best_iter=best_iter, history=c.history.clone(),
+                last_param=c.x.clone())
 
 
 def run_newton_cg(objective: Callable, x0: torch.Tensor, n_iter: int = 50,
@@ -1381,9 +1388,11 @@ class SamplerProgram:
         samples in the box; for ``TPE`` also ``"pick"``, ``[n2]`` indices
         into the best decile, and ``"noise"``, ``[n2, d]`` standard
         normals) replaces the generator's."""
-        args = self._draws(generator, draws)
-        evaluate = self.program if self.program is not None else self._trials
-        param, loss, best, losses = evaluate(*args)
+        with span("ebt.loop"):
+            args = self._draws(generator, draws)
+            evaluate = (self.program if self.program is not None
+                        else self._trials)
+            param, loss, best, losses = evaluate(*args)
         return OptResult(param=param, loss=loss, best_iter=best,
                          history=losses, last_param=param)
 

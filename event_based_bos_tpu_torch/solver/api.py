@@ -47,6 +47,7 @@ from ..ops.events import time_period
 from ..ops.filters import EventFilter
 from ..ops.warp import warp_event
 from ..types import Events
+from ..utils.tracing import span
 from . import programs
 from .wire import WireUploadMixin
 
@@ -66,13 +67,15 @@ def fetch_later(tensors: Sequence[torch.Tensor]
     """
     host = [t.detach().to("cpu", non_blocking=True) for t in tensors]
     cuda = [t.device for t in tensors if t.is_cuda]
-    if not cuda:
-        return lambda: host
-    done = torch.cuda.Event()
-    done.record(torch.cuda.current_stream(cuda[0]))
+    done = None
+    if cuda:
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(cuda[0]))
 
     def fetch() -> List[torch.Tensor]:
-        done.synchronize()
+        with span("ebt.fetch"):
+            if done is not None:
+                done.synchronize()
         return host
 
     return fetch
@@ -197,22 +200,25 @@ class SolverBase(WireUploadMixin):
         """
         carry_t = self.EVENTS_NEED_T or need_t is None or bool(need_t)
         if isinstance(events, np.ndarray):
-            num_orig = len(events)
-            period = (float(events[:, 2].max() - events[:, 2].min())
-                      if num_orig else 0.0)
-            if self.preproc_filter:
-                events = self.filter_set.process_numpy(events)
-                logger.info("After preprocessing %d out of %d.",
-                            len(events), num_orig)
+            # the pass over the raw window: its period, then the filter
+            with span("ebt.filter"):
+                num_orig = len(events)
+                period = (float(events[:, 2].max() - events[:, 2].min())
+                          if num_orig else 0.0)
+                if self.preproc_filter:
+                    events = self.filter_set.process_numpy(events)
+                    logger.info("After preprocessing %d out of %d.",
+                                len(events), num_orig)
             return self._to_events(events, need_t=carry_t), period
 
         ev = self._to_events(events)
-        num_orig = int(ev.count())
-        period = float(time_period(ev))
-        if self.preproc_filter:
-            ev = self.filter_set.process(ev)
-            logger.info("After preprocessing %d out of %d.", int(ev.count()),
-                        num_orig)
+        with span("ebt.filter"):
+            num_orig = int(ev.count())
+            period = float(time_period(ev))
+            if self.preproc_filter:
+                ev = self.filter_set.process(ev)
+                logger.info("After preprocessing %d out of %d.",
+                            int(ev.count()), num_orig)
         return ev, period
 
     def estimate(self, events, *args, **kwargs) -> np.ndarray:

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..types import Events
+from ..utils.tracing import span
 from .api import EstimationHandle, SolverBase, fetch_later
 from .cmax import CmaxProgram, CmaxSpec, estimate_frame_cmax
 from .generative import (GenerativeSpec, initialize_params, iwe_cache,
@@ -145,18 +146,19 @@ class GenerativeMaximumLikelihood(SolverBase):
         """Queue the IWE cache and the solve (the TPE study runs here, on
         the host); the handle's ``result()`` fetches the flow and, with a
         visualizer, plots the loss curve and the recorded evolution."""
-        ev = self._to_events(events)
-        frame = self._frame(kwargs)
-        if self._tpe_solver is not None:
-            seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
-                                     generator=self._generator,
-                                     device=self.device))
-            flow, aux = self._tpe_solver(ev, frame, seed)
-        else:
-            flow, aux = estimate_frame_gml(
-                ev, frame, self._generator, self.spec, device=self.device,
-                program=self._program(ev.capacity))
-        fetch = fetch_later([flow, aux["history"]])
+        with span("ebt.estimate"):
+            ev = self._to_events(events)
+            frame = self._frame(kwargs)
+            if self._tpe_solver is not None:
+                seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
+                                         generator=self._generator,
+                                         device=self.device))
+                flow, aux = self._tpe_solver(ev, frame, seed)
+            else:
+                flow, aux = estimate_frame_gml(
+                    ev, frame, self._generator, self.spec,
+                    device=self.device, program=self._program(ev.capacity))
+            fetch = fetch_later([flow, aux["history"]])
 
         def finalize() -> np.ndarray:
             flow_h, history = fetch()
@@ -221,9 +223,10 @@ class PatchEklt(SolverBase):
                                     program=self._program(ev.capacity))
 
     def estimate_async(self, events, *args, **kwargs) -> EstimationHandle:
-        ev = self._to_events(events)
-        flow, _aux = self._solve(ev, self._frame(kwargs))
-        fetch = fetch_later([flow])
+        with span("ebt.estimate"):
+            ev = self._to_events(events)
+            flow, _aux = self._solve(ev, self._frame(kwargs))
+            fetch = fetch_later([flow])
 
         def finalize() -> np.ndarray:
             self.iter_cnt += 1
@@ -408,24 +411,26 @@ class PatchEkltPyramid2(SolverBase):
         waits for the flow's ROI box and rebuilds the full frame, and with
         a visualizer plots the loss curve of each scale (and the recorded
         evolution, :mod:`.evolution`)."""
-        ev = self._to_events(events, need_t=False)
-        frame = self._frame(kwargs)
-        prev = self.previous_frame_best_estimation
-        steady = self.spec_steady is not None and prev is not None
-        used_spec = self.spec_steady if steady else self.spec
-        cache = iwe_cache(ev, self.gen, self._cache_program(ev.capacity))
-        flow, aux = estimate_frame(None, frame, self._mask, self._generator,
-                                   used_spec, prev_params=prev, cache=cache,
-                                   device=self.device,
-                                   program=self._program(ev.capacity, steady))
-        if self._fetch_dtype is not None:
-            flow = flow.to(self._fetch_dtype)
-        box = self._flow_fetch_box
-        fetch = fetch_later([flow if box is None
-                             else flow[:, box[0]:box[1], box[2]:box[3]]])
-        if self._warm_start:
-            self.set_previous_frame_best_estimation(
-                update_coarse_from_fine(aux["params_per_scale"], used_spec))
+        with span("ebt.estimate"):
+            ev = self._to_events(events, need_t=False)
+            frame = self._frame(kwargs)
+            prev = self.previous_frame_best_estimation
+            steady = self.spec_steady is not None and prev is not None
+            used_spec = self.spec_steady if steady else self.spec
+            cache = iwe_cache(ev, self.gen, self._cache_program(ev.capacity))
+            flow, aux = estimate_frame(
+                None, frame, self._mask, self._generator, used_spec,
+                prev_params=prev, cache=cache, device=self.device,
+                program=self._program(ev.capacity, steady))
+            if self._fetch_dtype is not None:
+                flow = flow.to(self._fetch_dtype)
+            box = self._flow_fetch_box
+            fetch = fetch_later([flow if box is None
+                                 else flow[:, box[0]:box[1], box[2]:box[3]]])
+            if self._warm_start:
+                self.set_previous_frame_best_estimation(
+                    update_coarse_from_fine(aux["params_per_scale"],
+                                            used_spec))
 
         def finalize() -> np.ndarray:
             if self.visualizer is not None:
@@ -500,11 +505,12 @@ class ContrastMaximization(SolverBase):
                      lambda: CmaxProgram(self.spec), self.spec.n_iter)
 
     def estimate_async(self, events, *args, **kwargs) -> EstimationHandle:
-        ev = self._to_events(events)
-        flow, aux = estimate_frame_cmax(ev, None, self._generator, self.spec,
-                                        device=self.device,
-                                        program=self._program(ev.capacity))
-        fetch = fetch_later([flow])
+        with span("ebt.estimate"):
+            ev = self._to_events(events)
+            flow, aux = estimate_frame_cmax(
+                ev, None, self._generator, self.spec, device=self.device,
+                program=self._program(ev.capacity))
+            fetch = fetch_later([flow])
 
         def finalize() -> np.ndarray:
             self.iter_cnt += 1

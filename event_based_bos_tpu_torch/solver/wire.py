@@ -23,6 +23,7 @@ import torch
 
 from ..types import (Events, bucket_capacity, decode_wire_events,
                      encode_wire_events, events_from_ndarray)
+from ..utils.tracing import span
 
 logger = logging.getLogger(__name__)
 
@@ -111,12 +112,14 @@ class WireUploadMixin:
                     str(self.dtype).replace("torch.", ""))
             use_wire = False
         if use_wire:
-            wire = encode_wire_events(arr, cap, include_t=need_t,
-                                      mode=wire_mode,
-                                      t_bitwise=opportunistic)
+            with span("ebt.encode"):
+                wire = encode_wire_events(arr, cap, include_t=need_t,
+                                          mode=wire_mode,
+                                          t_bitwise=opportunistic)
             if wire is not None:
-                return decode_wire_events(wire, dtype=self.dtype,
-                                          device=self.device)
+                with span("ebt.upload"):
+                    return decode_wire_events(wire, dtype=self.dtype,
+                                              device=self.device)
             if not opportunistic and not self._wire_fell_back:
                 self._wire_fell_back = True
                 logger.warning(
@@ -126,5 +129,6 @@ class WireUploadMixin:
                     "out-of-range values" if wire_mode == "round"
                     else "sub-1/32-px coordinates or out-of-range values; "
                          "'round' mode would snap them instead")
-        return events_from_ndarray(arr, capacity=cap, dtype=self.dtype,
-                                   device=self.device)
+        with span("ebt.upload"):
+            return events_from_ndarray(arr, capacity=cap, dtype=self.dtype,
+                                       device=self.device)

@@ -1,11 +1,23 @@
 """Profiling and timing: a fenced timing harness, ``torch.profiler``
-traces, and the section timer of the evaluation loop (``profile: true``).
+traces, the program's spans and counters, and the section timer of the
+evaluation loop (``profile: true``).
 
 PyTorch port's counterpart of the JAX package's ``utils/tracing.py``.
 ``Timer`` times on the host wall clock and never waits for the card
 itself: a section that must include device work ends in an explicit wait
 (a fetch of its result, or ``torch.cuda.synchronize(device)``) written at
 the call site.  ``timeit`` fences each call with ``device_fence``.
+
+:func:`span` names a piece of the program's host work in a profiler's
+trace (``ebt.filter``, ``ebt.encode``, ``ebt.upload``, ``ebt.estimate``,
+``ebt.loop``, ``ebt.capture``, ``ebt.fetch``): the range lands in the same
+trace as the device's kernels and copies, on the same clock, so each of the
+device's idle gaps falls under the program's innermost span.  A span is
+live exactly while a profiler records on the calling thread; otherwise it
+is one check.  Spans come a few a frame and one a loop run, never inside a
+captured graph nor per replay.  :func:`count` adds to a process-wide
+counter at rare events (``graph.capture_s``, the seconds the graph
+captures took); :func:`counters` reads them.
 """
 
 from __future__ import annotations
@@ -15,14 +27,40 @@ import logging
 import os
 import tempfile
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["device_fence", "timeit", "trace", "Timer"]
+__all__ = ["device_fence", "timeit", "trace", "span", "count", "counters",
+           "Timer"]
+
+#: what :func:`span` returns while no profiler records
+_NO_SPAN = contextlib.nullcontext()
+
+_counters: Dict[str, Union[int, float]] = {}
+_profiler_enabled = torch.autograd._profiler_enabled
+
+
+def span(name: str):
+    """A context that marks its block as ``name`` in the trace of the
+    ``torch.profiler`` that records (``record_function``); while none
+    does, the shared no-op context."""
+    if _profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def count(name: str, amount: Union[int, float] = 1) -> None:
+    """Add ``amount`` to the process-wide counter ``name``."""
+    _counters[name] = _counters.get(name, 0) + amount
+
+
+def counters() -> Dict[str, Union[int, float]]:
+    """A copy of the process-wide counters (absent until first counted)."""
+    return dict(_counters)
 
 
 def _array_leaves(tree) -> list:
@@ -79,7 +117,8 @@ def trace(log_dir: Optional[str] = None):
     CUDA activity where CUDA is available) and export it as a Chrome trace
     ``trace_<pid>_<time>.json`` into ``log_dir`` (default
     ``<temp dir>/ebt_trace``); yields ``log_dir``.  Where the profiler
-    cannot start, the block runs untraced after one warning."""
+    cannot start, raises before the block runs: a trace asked for is never
+    silently a run without one."""
     log_dir = log_dir or os.path.join(tempfile.gettempdir(), "ebt_trace")
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -87,22 +126,17 @@ def trace(log_dir: Optional[str] = None):
     prof = torch.profiler.profile(activities=activities)
     try:
         prof.start()
-    except Exception as e:  # noqa: BLE001
-        logger.warning("torch profiler unavailable: %s", e)
-        prof = None
+    except Exception as e:
+        raise RuntimeError(f"torch profiler could not start: {e}") from e
     try:
         yield log_dir
     finally:
-        if prof is not None:
-            try:
-                prof.stop()
-                os.makedirs(log_dir, exist_ok=True)
-                path = os.path.join(
-                    log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
-                prof.export_chrome_trace(path)
-                logger.info("profiler trace written to %s", path)
-            except Exception as e:  # noqa: BLE001
-                logger.warning("stopping profiler failed: %s", e)
+        prof.stop()
+        os.makedirs(log_dir, exist_ok=True)
+        path = os.path.join(log_dir,
+                            f"trace_{os.getpid()}_{time.time_ns()}.json")
+        prof.export_chrome_trace(path)
+        logger.info("profiler trace written to %s", path)
 
 
 class Timer:
