@@ -223,9 +223,13 @@ class PatchEklt(SolverBase):
                                     program=self._program(ev.capacity))
 
     def estimate_async(self, events, *args, **kwargs) -> EstimationHandle:
+        """Queue the IWE cache and the solve; the handle's
+        ``loss_history`` holds one ``[n_iter]`` history, a copy of this
+        frame's: each step's loss summed over the active patches (the
+        joint solve: its loss)."""
         with span("ebt.estimate"):
             ev = self._to_events(events)
-            flow, _aux = self._solve(ev, self._frame(kwargs))
+            flow, aux = self._solve(ev, self._frame(kwargs))
             fetch = fetch_later([flow])
 
         def finalize() -> np.ndarray:
@@ -233,7 +237,9 @@ class PatchEklt(SolverBase):
             return self._orient_flow(fetch()[0].numpy())
 
         self.dispatch_cnt += 1
-        return EstimationHandle(finalize)
+        handle = EstimationHandle(finalize)
+        handle.loss_history = [aux["history"]]
+        return handle
 
 
 class PatchEkltDependent(PatchEklt):

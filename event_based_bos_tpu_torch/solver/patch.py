@@ -15,6 +15,15 @@ PyTorch counterpart of the JAX package's ``solver/patch.py``:
 
 Both vote the IWE cache once a frame (one launch of the vote kernel on the
 card).  A :class:`PatchProgram` keeps either solve from frame to frame.
+
+The independent solve fits every patch of the grid and masks the inactive
+ones afterwards.  Under a profiler its spans ``ebt.patch.cut`` (the patch
+windows of the frame's constants) and ``ebt.patch.assemble`` (the masked
+patch flow to the dense frame) name that work, and each solve adds to the
+counters ``patch.fits`` (patches in the batch) and ``patch.active``
+(patches whose centre lies in the ROI, from the grid on the host: with
+``do_event_thresholding`` an upper bound of the patches that enter the
+flow).
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from ..ops.gradients import poisson_to_flow
 from ..ops.image_warp import warp_image_shift
 from ..optim import FirstOrderLoop
 from ..types import Events, PatchGrid
+from ..utils.tracing import count, span
 from .generative import (NORM_EPS, GenerativeSpec, _safe_frobenius,
                          dense_operators, frame_constants, initialize_params,
                          iwe_cache_program, measured_increment,
@@ -210,6 +220,10 @@ class PatchProgram:
         self._lr = None
         self._ops = None
         self.cache = iwe_cache_program(spec.gen) if kept else None
+        #: patches whose centre lies in the ROI (the independent solve's
+        #: ``patch.active`` a solve)
+        self.roi_patches = (None if joint else
+                            int(spec.grid.roi_mask(*spec.roi).sum()))
 
     def _build_independent(self) -> None:
         spec = self.spec
@@ -255,8 +269,11 @@ class PatchProgram:
         spec = self.spec
         gen = spec.gen
         gh, gw = spec.grid.shape
-        consts = _patch_constants(histogram, weights, weight_inverse, gx, gy,
-                                  spec)
+        count("patch.fits", gh * gw)
+        count("patch.active", self.roi_patches)
+        with span("ebt.patch.cut"):
+            consts = _patch_constants(histogram, weights, weight_inverse, gx,
+                                      gy, spec)
         dim = (1 if gen.angle_model else 2) + (2 if gen.optimize_warp else 0)
         x0 = torch.zeros((gh * gw, dim), dtype=gen.dtype,
                          device=histogram.device)
@@ -275,8 +292,11 @@ class PatchProgram:
         else:
             u, v = thetas[:, 0], thetas[:, 1]
         patched = torch.stack([u, v]).reshape(2, gh, gw) * active[None]
+        # a step's loss summed over the patches that enter the flow; the
+        # loop's per-patch [n_iter, n_patch] history goes no further
+        history = torch.mv(res.history, active.reshape(-1))
         return patched, {"losses": res.loss.reshape(gh, gw),
-                         "thetas": thetas}
+                         "thetas": thetas, "history": history}
 
     def solve_joint(self, histogram, weights, weight_inverse, gx, gy,
                     patch_mask, x0, lr):
@@ -319,7 +339,9 @@ def solve_patches_independent(histogram: torch.Tensor,
                               spec: PatchSpec,
                               program: Optional[PatchProgram] = None):
     """All patches at once → the masked ``[2, gh, gw]`` patch flow, plus
-    each patch's best loss ``[gh, gw]`` and parameters ``[n_patch, d]``;
+    each patch's best loss ``[gh, gw]`` and parameters ``[n_patch, d]``
+    and the ``[n_iter]`` history of the loss summed over the active
+    patches;
     through ``program`` (an independent :class:`PatchProgram` of ``spec``)
     or a program of its own used once."""
     return _program_for(spec, False, program).solve_independent(
@@ -345,7 +367,9 @@ def estimate_frame_patch(ev: Events, frame,
     active = active_patch_mask(ev, spec)
     patched, aux = solve_patches_independent(hist, weights, weight_inverse,
                                              gx, gy, active, spec, program)
-    return patch_to_dense(patched, spec.grid), aux
+    with span("ebt.patch.assemble"):
+        dense = patch_to_dense(patched, spec.grid)
+    return dense, aux
 
 
 # ---------------------------------------------------------------------------

@@ -174,6 +174,18 @@ def jax_piv_multipass64(frame_a, frame_b, settings):
     return out
 
 
+def patch_window(seed, size, n=3000):
+    """A seeded random window of ``size``: ``(events (n, 4) at integer
+    pixels of the whole frame, a frame of uniform noise)``."""
+    rng = np.random.default_rng(seed)
+    h, w = size
+    frame = rng.uniform(0, 255, (h, w))
+    events = np.stack([rng.integers(0, h, n), rng.integers(0, w, n),
+                       np.sort(rng.uniform(0.0, 0.03, n)),
+                       rng.choice([-1.0, 1.0], n)], axis=1).astype(np.float64)
+    return events, frame.astype(np.float32)
+
+
 @contextlib.contextmanager
 def torch_threads(n):
     """Run the block with ``n`` torch intra-op threads.  The solves of the
