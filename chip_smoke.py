@@ -9,7 +9,8 @@ failure:
 
 1. card identity (``nvidia-smi`` name and power limit) and TF32 switched off;
 2. build of every CUDA kernel from ``event_based_bos_tpu_torch/csrc``
-   (``hat_vote.cu``, ``cmax_stencil.cu`` and ``graph_while.cu``) and of
+   (``hat_vote.cu``, ``cmax_stencil.cu``, ``patch_objective.cu`` and
+   ``graph_while.cu``) and of
    the vote kernel's earlier design (``tools/hat_vote_atomic.cu``), one
    ``nvcc`` each, in parallel;
 3. the vote entry (``ops/iwe_cuda.py::hat_vote``) against its plain
@@ -33,7 +34,17 @@ failure:
    error < 1e-5; kernel, plain and library times (``grid_sample`` over the
    bins and a sum, forward and backward) against the bound (the bytes, or
    the operations of the taps these inputs need, whichever is larger).
-   Every time in phases 3 and 3b is the median of 20 CUDA-event spans
+3c. the independent patch objective's kernel (``ops/patch_cuda.py``,
+   ``csrc/patch_objective.cu``) against its plain version in float64 at
+   ``patch_eklt``'s grid (4-px patches every 2 px over 720×1280: 229,401
+   patches of the workload's frame constants; random θ, every seventh
+   patch at θ = 0, at an integer shift, at a zero shift): each patch's loss
+   within 1e-5, its gradient within 1e-4 at all but 1e-4 of the patches
+   (the kinks, where float32 and float64 take different sides); kernel
+   and plain times against the bound (the bytes: 228 a patch), and one
+   solve step's objective and backward captured as a CUDA graph through
+   the kernel and through the vmapped objective it replaces.
+   Every time in phases 3, 3b and 3c is the median of 20 CUDA-event spans
    holding device time only, each after the L2 cache was flushed by
    reading 64 MB;
 4. the main path at full width — the ``bench.py`` workload and spec: the
@@ -236,7 +247,11 @@ failure:
    ``torch.profiler`` trace, and every vote of a kept program (eager or
    replayed inside a capture) held against ``hat_vote_plain`` on CPU
    copies of its arguments; ms/frame of both routes, the kept frame's idle
-   share, capture ms and pool MB.  Then phase 6's serving loop on
+   share, capture ms and pool MB.  The same for PatchEklt on the velocity
+   model with ``perfbench/configs/patch_eklt.json``'s solver section (the
+   objective on the ``patch_objective`` kernel): ``n_iter`` kernel launches
+   a kept frame, and its fits within that cell's limits of a solve through
+   the vmapped objective it replaces.  Then phase 6's serving loop on
    ``configs/synthetic_cmax.yaml``'s solver section and on the pyramid
    config, through the kept programs and through the per-call route, with
    and without ``pipeline: true``, and one frame under ``eager_loops()``:
@@ -917,6 +932,134 @@ def check_cmax_kernels(events, device):
             "bound_by": bound_by, "library_ms": library_ms})
     kernels.reset_launches()
     return entries
+
+
+PATCH_LOSS_REL, PATCH_GRAD_REL, PATCH_KINK_SHARE = 1e-5, 1e-4, 1e-4
+PATCH_BYTES = 3 * 4 * 16 + 16 + 4 + 16   # windows, θ; loss, gradient
+PATCH_OPS = 1876   # float32 flops a patch, as its 4 lanes run them
+
+
+def patch_cell_spec():
+    """``patch_eklt``'s independent solve at the workload's size: 4-px
+    patches every 2 px, the velocity and the pattern shift, the generative
+    defaults' cost (diff_norm, image_gradient, flow_norm_pxy), float32."""
+    from event_based_bos_tpu_torch.solver.generative import GenerativeSpec
+    from event_based_bos_tpu_torch.solver.patch import PatchSpec
+
+    return PatchSpec(gen=GenerativeSpec(image_size=(H, W),
+                                        poisson_model=False),
+                     roi=ROI, patch_size=4, sliding_window=2)
+
+
+def graph_ms(fn, device, flush=None):
+    """:func:`cuda_ms` of one replay of ``fn`` captured as a CUDA graph
+    (as the optimizer loops replay their step)."""
+    import torch
+
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, flush=flush)
+
+
+def check_patch_kernel(events, frame, device):
+    """Phase 3c: the patch objective kernel against its plain version at
+    ``patch_eklt``'s grid, and its times."""
+    import torch
+
+    from event_based_bos_tpu_torch import events_from_ndarray, kernels
+    from event_based_bos_tpu_torch.ops import patch_cuda
+    from event_based_bos_tpu_torch.solver import patch as tpatch
+    from event_based_bos_tpu_torch.solver.generative import frame_constants
+
+    dev = torch.device(device)
+    spec = patch_cell_spec()
+    ev = events_from_ndarray(events, capacity=CAPACITY, device=dev)
+    frame_t = torch.as_tensor(frame, dtype=torch.float32, device=dev)
+    _ev, gx, gy, hist, weights, wi = frame_constants(ev, frame_t, spec.gen,
+                                                     dev, None)
+    consts = tpatch._patch_constants(hist, weights, wi, gx, gy, spec)
+    windows = [consts[k].contiguous() for k in tpatch.KERNEL_WINDOWS]
+    terms = tpatch._kernel_weights(spec, consts)
+    n = windows[0].shape[0]
+    assert terms == (1.0, 0.1) and n == 229_401, (terms, n)
+
+    g = torch.Generator().manual_seed(0)
+    theta = torch.cat([torch.randn((n, 2), generator=g) * 1.5,
+                       torch.rand((n, 2), generator=g) * 4 - 2], 1)
+    theta[0::7] = 0.0
+    theta[1::7, 2:] = torch.randint(-2, 3, (len(theta[1::7]), 2),
+                                    generator=g).float()
+    theta[2::7, 2:] = 0.0
+    theta = theta.to(dev)
+    kernels.reset_launches()
+    loss, grad = patch_cuda.patch_objective_fwd(theta, *windows, terms)
+    torch.cuda.synchronize()
+    assert kernels.launches["patch_objective"] == 1, kernels.launches
+    want_loss, want_grad = patch_cuda.patch_objective_plain(
+        theta.double(), *(w.double() for w in windows), terms)
+    loss_rel = ((loss.double() - want_loss).abs()
+                / want_loss.abs().clamp(min=1e-30))
+    grad_rel = ((grad.double() - want_grad).norm(dim=1)
+                / want_grad.norm(dim=1).clamp(min=1e-30))
+    off = int((grad_rel > PATCH_GRAD_REL).sum())
+    print(f"patch objective kernel vs float64 plain, {n} patches: loss max "
+          f"rel {float(loss_rel.max()):.3e} (limit {PATCH_LOSS_REL:g}), "
+          f"gradient max rel {float(grad_rel.max()):.3e}, median "
+          f"{float(grad_rel.median()):.3e}, {off} patches above "
+          f"{PATCH_GRAD_REL:g} (limit {int(PATCH_KINK_SHARE * n)})")
+    assert float(loss_rel.max()) <= PATCH_LOSS_REL
+    assert off <= PATCH_KINK_SHARE * n
+    assert torch.isfinite(grad).all()
+
+    flush = l2_flush(dev)
+    kernel_ms = cuda_ms(lambda: patch_cuda.patch_objective_fwd(
+        theta, *windows, terms), flush=flush)
+    plain_ms = cuda_ms(lambda: patch_cuda.patch_objective_plain(
+        theta, *windows, terms), flush=flush)
+
+    def one(t, m, a, b, w):
+        return tpatch._patch_objective(t, m, a, b, w, None, spec)
+
+    vmapped = torch.func.vmap(one)
+
+    def step(objective):
+        def evaluate():
+            xg = theta.detach().requires_grad_(True)
+            with torch.enable_grad():
+                out = objective(xg)
+                torch.autograd.grad(out.sum(), xg)
+        return evaluate
+
+    step_kernel_ms = graph_ms(step(lambda x: patch_cuda.patch_objective(
+        x, *windows, terms)), dev, flush=flush)
+    step_vmapped_ms = graph_ms(step(lambda x: vmapped(
+        x, *windows, consts["wi_p"])), dev, flush=flush)
+    t_bytes = n * PATCH_BYTES / HBM_BYTES_PER_S
+    t_ops = n * PATCH_OPS / F32_FLOPS
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"patch_objective times (median of 20, L2 flushed): kernel "
+          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms * 1e3:.2f} us ({n * PATCH_BYTES} B, {n * PATCH_OPS} "
+          f"f32 ops, {bound_by}, {100 * bound_ms / kernel_ms:.1f} % of it); "
+          f"a step's objective and backward as a CUDA graph: through the "
+          f"kernel {step_kernel_ms:.4f} ms, vmapped {step_vmapped_ms:.4f} ms")
+    kernels.reset_launches()
+    return {"name": "patch_objective", "route": "cuda",
+            "source": "event_based_bos_tpu_torch/csrc/patch_objective.cu",
+            "replaces": "none (the JAX package's objective is plain JAX)",
+            "max_rel_err_loss": float(loss_rel.max()),
+            "grad_above_limit": off, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "step_kernel_ms": step_kernel_ms,
+            "library_ms": step_vmapped_ms}
 
 
 def run_main_path(events, frame, gt_flow, device):
@@ -1649,7 +1792,8 @@ def run_serving(device):
     assert n == 2 and steps == 260, (n, steps)
     assert mask_votes(per_caller) == 2, per_caller
     assert launches == {"hat_vote_image": 4, "cmax_stencil_fwd": 520,
-                        "cmax_stencil_bwd": 520}, launches
+                        "cmax_stencil_bwd": 520, "patch_objective": 0}, \
+        launches
     results["cmax"] = dict(ms_per_frame=ms, frames=n, steady=head,
                            sections=shares, launches=launches,
                            launches_per_frame={k: v / n for k, v in
@@ -1872,7 +2016,8 @@ def run_visualize(device, loader, gt):
     assert solv.iter_cnt == 1
     assert per_caller == {"cmax_solve": 1, "render_bundle": 2}, per_caller
     assert launches == {"hat_vote_image": 3, "cmax_stencil_fwd": 260,
-                        "cmax_stencil_bwd": 260}, launches
+                        "cmax_stencil_bwd": 260, "patch_objective": 0}, \
+        launches
     results["cmax"] = dict(ms_per_frame=ms, launches=launches)
     kernels.reset_launches()
 
@@ -3448,7 +3593,7 @@ def run_wire_serving(device, loader, gt):
     assert all(close), "a float16-fetched flow is off the rounding bound"
     assert launches["hat_vote_image"] == 6, launches
     return {"ms_per_frame": ms, "launches": launches["hat_vote_image"],
-            "text_deviation": worst}
+            "every_kernel": launches, "text_deviation": worst}
 
 
 def run_mesh_cli(device):
@@ -3489,7 +3634,8 @@ def run_mesh_cli(device):
           f"{same}")
     assert all(same), "the 1x1 mesh loop's flows differ from phase 6's"
     assert launches["hat_vote_image"] == 6, launches
-    return {"seconds": wall, "launches": launches["hat_vote_image"]}
+    return {"seconds": wall, "launches": launches["hat_vote_image"],
+            "every_kernel": launches}
 
 
 def mesh_solver(device, n_iter=MESH_ITERS, **extra):
@@ -4152,7 +4298,9 @@ class CaptureLog:
 def profiled(fn):
     """``fn()`` under ``torch.profiler`` (CPU and CUDA activity), between
     two CUDA events; returns the CUDA events of the trace (kernels,
-    memsets, copies) as ``(name, us)`` and the span's ms."""
+    memsets, copies) as ``(name, us)`` and the span's ms.  The device-side
+    copies of the program's ``record_function`` spans are no activity of
+    their own and are left out."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -4165,8 +4313,13 @@ def profiled(fn):
         fn()
         e.record()
         torch.cuda.synchronize()
+    def annotation(ev):
+        flag = getattr(ev, "is_user_annotation", False)
+        return bool(flag() if callable(flag) else flag)
+
     return ([(ev.name, ev.time_range.elapsed_us()) for ev in prof.events()
-             if ev.device_type == DeviceType.CUDA], s.elapsed_time(e))
+             if ev.device_type == DeviceType.CUDA and not annotation(ev)],
+            s.elapsed_time(e))
 
 
 def alternated(routes, frames=4):
@@ -4284,7 +4437,7 @@ def graph_pyramid(events, frame, gt_flow, device):
     assert all(same.values()), f"graph and eager routes differ: {same}"
     assert f"{epe:.4f}" == PYRAMID_EPE, f"EPE {epe!r} moved from {PYRAMID_EPE}"
     assert launches == {"hat_vote_image": 1, "cmax_stencil_fwd": 0,
-                        "cmax_stencil_bwd": 0}, launches
+                        "cmax_stencil_bwd": 0, "patch_objective": 0}, launches
     result.update(epe=epe, launches=launches, bit_identical=same)
     return result
 
@@ -4340,7 +4493,8 @@ def graph_cmax(events, device):
     assert n_captures == 4 * spec.n_scales, n_captures
     assert all(same.values()), f"graph and eager routes differ: {same}"
     assert launches == {"hat_vote_image": 1, "cmax_stencil_fwd": steps,
-                        "cmax_stencil_bwd": steps}, launches
+                        "cmax_stencil_bwd": steps, "patch_objective": 0}, \
+        launches
     assert fwd == bwd == steps == 260, (fwd, bwd, steps)
     result.update(launches=launches, bit_identical=same,
                   trace_stencil_events=[fwd, bwd])
@@ -4788,7 +4942,73 @@ def kept_solvers(events, device):
         out[solver] = kept_cell(solver, lambda: solve(program), solve,
                                 program, frames=2, votes=1)
         del program, solv
+    out["patch_eklt_velocity"] = kept_patch_kernel(ev, frame_t, dev)
     return out
+
+
+def kept_patch_kernel(ev, frame_t, dev):
+    """(c) of phase 16: PatchEklt with the solver section of
+    ``perfbench/configs/patch_eklt.json`` (the velocity model and the
+    pattern shift, 600 Adam steps) on ``ev``, whose objective runs on the ``patch_objective``
+    kernel: a kept cell, ``n_iter`` kernel launches in its kept frame, and
+    its fits over the ROI's patches against a solve through the vmapped
+    objective, within that cell's limits."""
+    import numpy as np
+    import torch
+
+    from event_based_bos_tpu_torch.solver import facades
+    from event_based_bos_tpu_torch.solver import patch as tpatch
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "perfbench", "configs", "patch_eklt.json")
+    with open(path) as f:
+        config = json.load(f)
+    solver = config["solver"]
+    solv = facades.collections["patch_eklt"](
+        tuple(config["image_size"]),
+        (solver["crop_height"], solver["crop_width"]),
+        solver_config=solver, device=dev)
+    pspec = solv.spec
+    program = tpatch.PatchProgram(pspec, joint=False)
+
+    def solve(program=None):
+        return tpatch.estimate_frame_patch(
+            ev, frame_t, torch.Generator(dev).manual_seed(0), pspec,
+            device=dev, program=program)
+
+    cell = kept_cell("patch_eklt velocity", lambda: solve(program), solve,
+                     program, frames=2, votes=1)
+    assert program.on_kernel, "the covered spec left the kernel"
+    assert cell["launches"]["patch_objective"] == pspec.n_iter, cell
+    flow, got = solve(program)
+    pick = tpatch._kernel_weights
+    tpatch._kernel_weights = lambda *a: None
+    try:
+        vmapped = tpatch.PatchProgram(pspec, joint=False)
+        want_flow, want = solve(vmapped)
+    finally:
+        tpatch._kernel_weights = pick
+    assert not vmapped.on_kernel
+    roi = torch.as_tensor(np.asarray(pspec.grid.roi_mask(*pspec.roi)),
+                          device=dev).reshape(-1).bool()
+    v_got, v_want = got["thetas"][roi, :2], want["thetas"][roi, :2]
+    off = ((v_got - v_want).norm(dim=1)
+           / v_want.norm(dim=1).mean()).double()
+    best = (got["losses"].reshape(-1)[roi].double().sum()
+            / want["losses"].reshape(-1)[roi].double().sum())
+    gaps = {"fit_gap": float(off.median()),
+            "fit_share": float((off > 0.1).double().mean()),
+            "loss_gap": abs(float(best) - 1.0)}
+    limits = config["correct"]["limits"]
+    print(f"phase 16: patch_eklt velocity: {int(roi.sum())} ROI patches "
+          f"fitted on the kernel against the vmapped objective: {gaps} "
+          f"(limits {limits}); dense flow max |difference| "
+          f"{float((flow - want_flow).abs().max()):.3e} of "
+          f"{float(want_flow.abs().max()):.3e}; patch_objective launches a "
+          f"kept frame {cell['launches']['patch_objective']}")
+    assert all(gaps[k] <= limits[k] for k in gaps), (gaps, limits)
+    cell.update(gaps)
+    return cell
 
 
 def synthetic_cmax_config(name, time_list=((0.01, 0.18),), **top):
@@ -5201,6 +5421,7 @@ def program_cell(name, kept, per_call, program, order, check):
             with eager_loops() if route == "eager" else \
                     contextlib.nullcontext():
                 out, ms, v, syncs = timed_solve(fn)
+            every = dict(kernels.launches)
             launched = kernels.device_launches("graph_while")
             if route != "eager":
                 while_launches += launched
@@ -5210,7 +5431,8 @@ def program_cell(name, kept, per_call, program, order, check):
             rows[route].append(dict(ms=ms, votes=v, syncs=syncs,
                                     captures=count.n - before,
                                     host_reads=aux.get("host_reads"),
-                                    trials=trials, while_launches=launched))
+                                    trials=trials, while_launches=launched,
+                                    every_kernel=every))
             outs.setdefault(route, out)
             check(*out)
             # a kept program's captured votes hold numbers from its
@@ -5259,7 +5481,9 @@ def program_cell(name, kept, per_call, program, order, check):
         trials=[r["trials"] for r in kept_rows],
         while_launches=[r["while_launches"] for r in kept_rows],
         votes_checked=checked, bit_identical=same, max_abs_err=flow_err,
-        votes=sum(r["votes"] for v in rows.values() for r in v))
+        votes=sum(r["votes"] for v in rows.values() for r in v),
+        every_kernel={k: sum(r["every_kernel"][k] for v in rows.values()
+                             for r in v) for k in kernels.launches})
     card = card_line()
     print(f"phase 17: {name}: kept {out['kept_ms']:.1f} ms a solve (timed "
           f"{', '.join(f'{t:.1f}' for t in timed)}; warm-up "
@@ -5431,15 +5655,22 @@ class CaptureLines:
 def run_optimizer_programs(events, loader, gt, device):
     """Phase 17: L-BFGS, Nelder-Mead, Newton-CG and the samplers through
     the facades' kept programs, then the GML serving loop with BFGS."""
+    from event_based_bos_tpu_torch import kernels
+
     t0 = time.perf_counter()
     entry = check_while_node(device)
     quartic_err = check_lbfgs_quartic(device)
     out, entry["launches"] = kept_optimizer_programs(device)
-    out["votes"] = sum(cell["votes"] for cell in out.values())
+    cells = list(out.values())
+    out["votes"] = sum(cell["votes"] for cell in cells)
+    # every kernel's launches over the solves the cells timed, each counted
+    # from 0 just before it
+    out["every_kernel"] = {k: sum(cell["every_kernel"][k] for cell in cells)
+                           for k in kernels.launches}
     # the L-BFGS flows through the while graph against the eager loop's
     entry["max_abs_err"] = max(entry["max_abs_err"], *(
-        cell["max_abs_err"] for cell in out.values()
-        if isinstance(cell, dict) and cell["trials"][0] is not None))
+        cell["max_abs_err"] for cell in cells
+        if cell["trials"][0] is not None))
     out["lbfgs_quartic_max_abs_err_vs_cpu"] = quartic_err
     # the condition kernel's launches of every graph-route L-BFGS solve,
     # each counted from 0 just before it
@@ -5500,6 +5731,7 @@ def main():
 
     entries = [check_vote_kernel(events, "cuda", atomic_lib)]
     entries += check_cmax_kernels(events, "cuda")
+    entries.append(check_patch_kernel(events, frame, "cuda"))
     launches, main_flow, main_ms = run_main_path(events, frame, gt_flow,
                                                  "cuda")
     entries[0]["launches"] = launches["hat_vote_image"]
@@ -5540,7 +5772,10 @@ def main():
     entries[0]["max_abs_err"] = max(entries[0]["max_abs_err"],
                                     wire_mesh["rank_vote_err"])
     for entry in entries[1:]:
-        entry["launches_wire"] = entry["launches_mesh"] = 0
+        entry["launches_wire"] = wire_mesh["wire_serving"]["every_kernel"][
+            entry["name"]]
+        entry["launches_mesh"] = wire_mesh["mesh_cli"]["every_kernel"][
+            entry["name"]]
     entries[0]["launches_serving_pipelined"] = serving["pyramid_pipelined"][
         "vote_launches"]
     leftovers = run_leftovers_and_examples("cuda", events)
@@ -5559,13 +5794,16 @@ def main():
     kept = run_kept_programs(events, loader, gt, "cuda")
     for entry in entries:
         entry["launches_kept_cmax"] = kept["cmax"]["launches"][entry["name"]]
+        entry["launches_kept_patch"] = kept["patch_eklt_velocity"][
+            "launches"][entry["name"]]
     entries[0]["launches_kept_other_solvers"] = {
         k: kept[k]["launches"]["hat_vote_image"]
         for k in ("gml_adam", "patch_eklt", "patch_eklt_dependent")}
     programs, while_entry = run_optimizer_programs(events, loader, gt, "cuda")
     entries[0]["launches_optimizer_programs"] = programs["votes"]
     for entry in entries[1:]:
-        entry["launches_optimizer_programs"] = 0
+        entry["launches_optimizer_programs"] = programs["every_kernel"][
+            entry["name"]]
     entries.append(while_entry)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

@@ -3,8 +3,10 @@
 The kernels live in ``csrc/*.cu`` with a plain C interface:
 ``csrc/hat_vote.cu`` (the bilinear event vote, entry point
 ``ebt_vote``), ``csrc/cmax_stencil.cu`` (the time-binned CMax
-stencil, ``ebt_cmax_stencil_fwd`` and ``ebt_cmax_stencil_bwd``) and
-``csrc/graph_while.cu`` (a CUDA graph with a conditional WHILE node,
+stencil, ``ebt_cmax_stencil_fwd`` and ``ebt_cmax_stencil_bwd``),
+``csrc/patch_objective.cu`` (the independent patch objective and its
+gradient, ``ebt_patch_objective``) and ``csrc/graph_while.cu`` (a CUDA
+graph with a conditional WHILE node,
 ``ebt_while_build``/``_launch``/``_destroy``, for
 :class:`event_based_bos_tpu_torch.graphs.WhileGraph`).  At
 first use each source is compiled by ``nvcc`` for ``sm_90a`` (all sources
@@ -48,7 +50,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: kernel name → launches since the last :func:`reset_launches`
 launches: Dict[str, int] = {"hat_vote_image": 0, "cmax_stencil_fwd": 0,
-                            "cmax_stencil_bwd": 0}
+                            "cmax_stencil_bwd": 0, "patch_objective": 0}
 
 #: kernel name → per-device launch counters that the kernel itself bumps
 #: (int64 tensors of one element on the card, see :func:`device_counter`)
@@ -197,6 +199,8 @@ def load(path: str) -> ctypes.CDLL:
                         [p, p, p, i, i, i, i, i, p, p]),
                        ("ebt_cmax_stencil_bwd",
                         [p, p, p, p, i, i, i, i, i, p, p, p]),
+                       ("ebt_patch_objective",
+                        [p, p, p, p, ll, f, f, p, p, p]),
                        ("ebt_while_build", [p, p, p, p, p, p]),
                        ("ebt_while_launch", [p, p]),
                        ("ebt_while_destroy", [p])):

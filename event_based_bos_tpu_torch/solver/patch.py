@@ -8,7 +8,12 @@ PyTorch counterpart of the JAX package's ``solver/patch.py``:
     are optimized at once as one ``[n_patch, d]`` batch: the per-patch
     objective is ``torch.func.vmap``-ed, the gradient of the summed losses
     is each patch's own gradient, and the best iterate is tracked per
-    patch (a :class:`..optim.FirstOrderLoop` with a vector loss).
+    patch (a :class:`..optim.FirstOrderLoop` with a vector loss).  Where
+    :func:`..ops.patch_cuda.patch_objective` computes the objective (4×4
+    patches of the velocity model with the pattern shift, signed, without
+    event-hist weights, its cost terms, float32 windows on the card), one
+    kernel launch a step evaluates every patch's loss and gradient in its
+    place.
   * **Joint** — all patch parameters form one ``[n_dim, gh, gw]`` field
     optimized against the full-image objective cropped to the ROI; inactive
     patches (outside the ROI or under the event threshold) are masked.
@@ -20,8 +25,9 @@ The independent solve fits every patch of the grid and masks the inactive
 ones afterwards.  Under a profiler its spans ``ebt.patch.cut`` (the patch
 windows of the frame's constants) and ``ebt.patch.assemble`` (the masked
 patch flow to the dense frame) name that work, and each solve adds to the
-counters ``patch.fits`` (patches in the batch) and ``patch.active``
-(patches whose centre lies in the ROI, from the grid on the host: with
+counters ``patch.fits`` (patches in the batch), ``patch.kernel_fits``
+(those of them fitted through the kernel) and ``patch.active`` (patches
+whose centre lies in the ROI, from the grid on the host: with
 ``do_event_thresholding`` an upper bound of the patches that enter the
 flow).
 """
@@ -37,6 +43,7 @@ import torch
 from ..device import resolve_device
 from ..graphs import KeptSolve
 from ..numerics import abs_
+from ..ops import patch_cuda
 from ..ops.gradients import poisson_to_flow
 from ..ops.image_warp import warp_image_shift
 from ..optim import FirstOrderLoop
@@ -194,6 +201,32 @@ def _patch_constants(histogram, weights, weight_inverse, gx, gy,
             "wi_p": extract_patches(weight_inverse, grid), "w_p": w_p}
 
 
+#: the windows of :func:`_patch_constants` that the kernel of
+#: :func:`..ops.patch_cuda.patch_objective` reads, in its order
+KERNEL_WINDOWS = ("measured_p", "gx_p", "gy_p")
+
+
+def _card_float32(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda" and t.dtype == torch.float32
+
+
+def _kernel_weights(spec: PatchSpec, bufs) -> Optional[Tuple[float, ...]]:
+    """The weights of :data:`..ops.patch_cuda.TERMS` when the kernel of
+    :func:`..ops.patch_cuda.patch_objective` computes this independent
+    solve's objective, else None (the vmapped :func:`_patch_objective`):
+    4×4 patches of the velocity model with the pattern shift, a signed
+    prediction without event-hist weights, a cost of the kernel's terms
+    with numeric weights, and the windows kept as float32 on the card."""
+    gen = spec.gen
+    if (spec.patch_size != patch_cuda.SIDE or gen.angle_model
+            or not gen.optimize_warp or gen.no_polarity
+            or bufs["w_p"] is not None):
+        return None
+    if not all(_card_float32(bufs[k]) for k in KERNEL_WINDOWS):
+        return None
+    return patch_cuda.term_weights(gen.cost_weights)
+
+
 class PatchProgram:
     """The tiled solve for one spec, kept from frame to frame: the
     counterpart of the JAX package's jitted ``estimate_frame_patch``
@@ -203,13 +236,14 @@ class PatchProgram:
     captured per event capacity), and a
     :class:`~event_based_bos_tpu_torch.graphs.KeptSolve` holds the frame's
     constants in buffers of its own with the loop over them: the patch
-    windows and the active mask of the independent solve (its vmapped
-    objective over every patch), or the measurement, gradients, weights
-    and patch mask of the joint one (with the grid's interpolation
-    operators).  On the card the loop's step is captured at the first solve
-    and replayed after.  ``kept=False`` is a program used once (the
-    per-call route): the cache runs op by op and the loop's graph is
-    dropped after the solve.  Outputs are copies.
+    windows and the active mask of the independent solve (its objective
+    over every patch: the kernel of :mod:`..ops.patch_cuda` where it
+    computes it, :attr:`on_kernel`, else the vmapped objective), or the
+    measurement, gradients, weights and patch mask of the joint one (with
+    the grid's interpolation operators).  On the card the loop's step is
+    captured at the first solve and replayed after.  ``kept=False`` is a
+    program used once (the per-call route): the cache runs op by op and
+    the loop's graph is dropped after the solve.  Outputs are copies.
     """
 
     def __init__(self, spec: PatchSpec, joint: bool, kept: bool = True):
@@ -224,20 +258,30 @@ class PatchProgram:
         #: ``patch.active`` a solve)
         self.roi_patches = (None if joint else
                             int(spec.grid.roi_mask(*spec.roi).sum()))
+        #: whether the independent solve's objective runs on the kernel
+        #: (chosen when its loop is built, from the spec and the buffers)
+        self.on_kernel = False
 
     def _build_independent(self) -> None:
         spec = self.spec
         bufs = self.kept.buffers
+        weights = _kernel_weights(spec, bufs)
+        self.on_kernel = weights is not None
+        if self.on_kernel:
+            windows = [bufs[k] for k in KERNEL_WINDOWS]
 
-        def one(theta, m, a, b, wi, w):
-            return _patch_objective(theta, m, a, b, wi, w, spec)
+            def objective(thetas):
+                return patch_cuda.patch_objective(thetas, *windows, weights)
+        else:
+            def one(theta, m, a, b, wi, w):
+                return _patch_objective(theta, m, a, b, wi, w, spec)
 
-        batched = torch.func.vmap(one, in_dims=(
-            0, 0, 0, 0, 0, None if bufs["w_p"] is None else 0))
+            batched = torch.func.vmap(one, in_dims=(
+                0, 0, 0, 0, 0, None if bufs["w_p"] is None else 0))
 
-        def objective(thetas):
-            return batched(thetas, bufs["measured_p"], bufs["gx_p"],
-                           bufs["gy_p"], bufs["wi_p"], bufs["w_p"])
+            def objective(thetas):
+                return batched(thetas, bufs["measured_p"], bufs["gx_p"],
+                               bufs["gy_p"], bufs["wi_p"], bufs["w_p"])
 
         self.kept.loops.append(FirstOrderLoop(
             objective, spec.n_iter, spec.method, lr=spec.lr,
@@ -282,6 +326,8 @@ class PatchProgram:
         try:
             if self.kept.bind(consts):
                 self._build_independent()
+            if self.on_kernel:
+                count("patch.kernel_fits", gh * gw)
             res = self.kept.loops[0].run(x0)
         finally:
             if not self._keep:
